@@ -6,10 +6,13 @@ Phases (each raises, and the script exits non-zero, on any failure):
 
 1. card and build — the card's name and power limit (nvidia-smi); every
    kernel of the path is compiled from csrc/ with nvcc (all sources at once);
-2. kernels vs plain — each kernel's wrapper on the card at the serving
-   shapes, held against its plain PyTorch version (float32 atol 1e-4,
-   bfloat16 atol 2e-2), with CUDA-event times of the kernel, the plain
-   version and the library call beside the bound worked out from shapes;
+2. kernels vs plain — each kernel's wrapper on the card at the shapes of the
+   serving and training paths, held against its plain PyTorch version
+   (float32 atol 1e-4, bfloat16 atol 2e-2), with CUDA-event times of the
+   kernel, the plain version and the library call beside the bound worked
+   out from shapes. ``attention_fwd`` at head_dim 64 stands for the TPU's
+   ``_attention_kernel``, at head_dim 32 (the decoder) for
+   ``_attention_kernel_packed``;
 3. serving slice — a synthetic ZSL dataset (2048 entities, 32 relations, 4
    unseen) through the M3AE-small model (emb 384, depth 12, 6 heads of 64,
    image 256 / patch 16, 64 text and 320 description tokens; GCN dim 200,
@@ -21,7 +24,18 @@ Phases (each raises, and the script exits non-zero, on any failure):
    same round through the plain attention, and the two must agree. One more
    kernel-path round runs under torch.profiler (device busy time, idle
    share, top device ops);
-4. one JSON line of kernels, the card line, and the result line.
+4. training — one ``train_epoch`` of the fusion step at the full width of
+   M3AE-small (decoder 512 wide, depth 8, 16 heads of 32; 12 seeds × 4
+   sampled edges: 60 nodes, 48 edges; 10 negatives) on a 480-entity
+   fixture (40 steps), then the same epoch on a same-seed
+   attention_impl="torch" trainer. Each kernel step must launch exactly
+   3 × 12 head_dim-64 and 8 head_dim-32 attention kernels, the plain run
+   none; every loss term is finite; the first step agrees to rtol 1e-4 and
+   the epoch means to rtol 1e-2 (+ 1e-3). A second epoch of each, plain
+   first, gives step times in turns. Then six steps of each path, the
+   producer thread included, run under torch.profiler: device busy time,
+   idle share, and the share of the plain attention backward;
+5. one JSON line of kernels, the card line, and the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -29,6 +43,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -47,7 +62,7 @@ from mre_tpu_torch.data.kg import TripleTable
 from mre_tpu_torch.data.loaders import load_zsl_dataset
 from mre_tpu_torch.data.multimodal import MultimodalPipelineConfig, MultimodalStore
 from mre_tpu_torch.ops import attention
-from mre_tpu_torch.train.fusion import FusionConfig, FusionTrainer
+from mre_tpu_torch.train.fusion import INFO_KEYS, FusionConfig, FusionTrainer
 from mre_tpu_torch.zsl.module import ZSLConfig, ZSLModule
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -63,6 +78,18 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE = dict(model_type="small", depth=12, image_size=256, patch_size=16,
              n_ent=2048, n_rel=32, n_unseen=4, triples_per_rel=200,
              n_candidates=500, image_px=64)
+
+# the fusion training step at the full width of M3AE-small and the default
+# FusionConfig (12 seeds × 4 edges, 10 negatives); 480 entities = 40 steps
+TRAIN = dict(model_type="small", depth=12, dec_depth=8, image_size=256, patch_size=16,
+             n_ent=480, n_rel=32, n_unseen=4, triples_per_rel=60, image_px=64)
+# the kernel run against the plain run over one epoch: the first step's
+# terms differ only by summation order (rtol 1e-4); after 40 adam steps a
+# parameter whose gradient is near 0 may step by ±lr in the two runs, so the
+# epoch means get a looser bound, plus one token's accuracy flip (1e-3).
+FIRST_STEP_RTOL = 1e-4
+EPOCH_RTOL, EPOCH_ATOL = 1e-2, 1e-3
+PROFILE_STEPS = 6
 
 
 def log(*a):
@@ -107,8 +134,13 @@ def serving_mask(B: int, N: int, n_text: int, gen, mostly_pad: bool) -> torch.Te
 def attention_case(name, B, H, N, hd, dtype, mask_kind, gen, timed=False):
     dev = torch.device("cuda")
     q, k, v = (torch.randn(B, H, N, hd, generator=gen).to(dev, dtype) for _ in range(3))
-    if mask_kind == "entity":
-        pad = serving_mask(B, N, 64, gen, mostly_pad=False).to(dev)
+    if mask_kind in ("entity", "all_pad_row"):
+        pad = serving_mask(B, N, min(64, N - 1), gen, mostly_pad=False)
+        if mask_kind == "all_pad_row":
+            pad[0] = 1.0
+        pad = pad.to(dev)
+    elif mask_kind == "masked_text":       # masked encoder: 16 kept text tokens
+        pad = serving_mask(B, N, 16, gen, mostly_pad=False).clamp(max=1.0).to(dev)
     elif mask_kind == "relation":
         pad = serving_mask(B, N, N - 1, gen, mostly_pad=True).to(dev)
     else:
@@ -146,12 +178,27 @@ def phase_kernels():
     gen = torch.Generator().manual_seed(0)
     recs = []
     for dtype in (torch.float32, torch.bfloat16):
+        # head_dim 64: _attention_kernel (serving shapes, then training)
         recs.append(attention_case("entity", 512, 6, 321, 64, dtype, "entity", gen, timed=True))
         recs.append(attention_case("relation", 64, 6, 321, 64, dtype, "relation", gen, timed=True))
         recs.append(attention_case("generate", 20, 6, 321, 64, dtype, "relation", gen, timed=True))
         recs.append(attention_case("no_mask", 64, 6, 321, 64, dtype, "none", gen))
         recs.append(attention_case("huge_hd80", 64, 16, 321, 80, dtype, "entity", gen, timed=True))
         recs.append(attention_case("ragged_n37", 3, 6, 37, 64, dtype, "entity", gen))
+        recs.append(attention_case("train_nodes", 60, 6, 321, 64, dtype, "entity", gen,
+                                   timed=True))
+        recs.append(attention_case("train_edges", 48, 6, 321, 64, dtype, "relation", gen,
+                                   timed=True))
+        recs.append(attention_case("masked_encoder", 60, 6, 81, 64, dtype, "masked_text", gen,
+                                   timed=True))
+        # head_dim 32: _attention_kernel_packed (the decoder, 16 heads of 32)
+        recs.append(attention_case("decoder", 60, 16, 321, 32, dtype, "entity", gen,
+                                   timed=True))
+        recs.append(attention_case("decoder_ragged_n37", 3, 16, 37, 32, dtype, "entity", gen))
+        recs.append(attention_case("decoder_n1", 3, 16, 1, 32, dtype, "none", gen))
+        recs.append(attention_case("decoder_all_pad_row", 4, 16, 321, 32, dtype,
+                                   "all_pad_row", gen))
+        recs.append(attention_case("decoder_no_mask", 8, 16, 321, 32, dtype, "none", gen))
     return recs
 
 
@@ -163,33 +210,48 @@ def sync():
         torch.cuda.synchronize()
 
 
-def profile_serve(serve) -> dict:
-    """One more kernel-path run under torch.profiler: wall time, device busy
-    time (the sum over device-side events: kernels, copies, sets; CPU ops
-    that only launch them are left out so nothing counts twice), idle share,
-    and the top device events by time."""
+ATTENTION_BWD = "autograd::engine::evaluate_function: FusedAttentionBackward"
+
+
+def profile_run(fn, tag: str) -> dict:
+    """One kernel-path run of ``fn`` under torch.profiler: wall time, device
+    busy time (the sum over device-side events: kernels, copies, sets; CPU
+    ops that only launch them are left out so nothing counts twice), idle
+    share, the attention forward kernels' time, the device time of the
+    attention backward (the plain recompute that autograd runs under the
+    FusedAttentionBackward node), and the top device events by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve()
+        fn()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and not e.key.startswith("Activity Buffer")]      # profiler's own
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    bwd_ms = sum(e.device_time_total / 1e3 for e in events if e.key == ATTENTION_BWD)
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / wall_ms,
                attention_ms=sum(r[1] for r in rows if "attention_fwd" in r[0]),
+               attention_bwd_ms=bwd_ms, attention_bwd_share=bwd_ms / max(busy_ms, 1e-9),
                top=[dict(op=k[:80], ms=ms, count=c) for k, ms, c in rows[:12]])
-    log(f"[profile] wall {wall_ms:.1f} ms  device busy {busy_ms:.1f} ms  idle share "
-        f"{out['device_idle_share']:.3f}  attention_fwd {out['attention_ms']:.1f} ms")
+    log(f"[{tag}] wall {wall_ms:.1f} ms  device busy {busy_ms:.1f} ms  idle share "
+        f"{out['device_idle_share']:.3f}  attention_fwd {out['attention_ms']:.1f} ms  "
+        f"attention backward {bwd_ms:.1f} ms ({out['attention_bwd_share']:.3f} of busy)")
     for r in out["top"]:
-        log(f"[profile]   {r['ms']:10.2f} ms  x{r['count']:<5} {r['op']}")
+        log(f"[{tag}]   {r['ms']:10.2f} ms  x{r['count']:<5} {r['op']}")
     return out
+
+
+def reset_launches():
+    for key in attention.LAUNCHES:
+        attention.LAUNCHES[key] = 0
 
 
 def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
@@ -236,18 +298,23 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
         times["eval_s"] = time.perf_counter() - t0
         return ent, rel, res, times
 
-    attention.LAUNCHES["attention_fwd"] = 0
+    reset_launches()
     ent, rel, res, times = serve(fusion)
     launches = dict(attention.LAUNCHES)
     t.update(times)
-    expect = cfg["depth"] * (math.ceil(cfg["n_ent"] / 512) + math.ceil(cfg["n_rel"] / 64)
-                             + cfg["n_unseen"])
+    # the serving path runs the encoder only: no decoder, no head_dim 32;
+    # on the CPU (a rehearsal) the wrappers take the plain version
+    on_card = fusion.device.type == "cuda"
+    expect = {"attention_fwd": on_card * cfg["depth"] * (math.ceil(cfg["n_ent"] / 512)
+                                                         + math.ceil(cfg["n_rel"] / 64)
+                                                         + cfg["n_unseen"]),
+              "attention_fwd_packed": 0}
     log(f"[slice] kernel run: {times}  launches {launches}  expected {expect}")
     log(f"[slice] metrics: hits10 {res['hits10']:.4f} hits5 {res['hits5']:.4f} "
         f"hits1 {res['hits1']:.4f} mrr {res['mrr']:.6f} n {res['n']}")
-    if launches["attention_fwd"] != expect:
-        raise AssertionError(f"attention_fwd launched {launches['attention_fwd']} "
-                             f"times on the serving path, expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"attention kernels launched {launches} times on the "
+                             f"serving path, expected {expect}")
     if ent.shape != (cfg["n_ent"], 200) or rel.shape != (cfg["n_rel"], 200):
         raise AssertionError(f"embedding shapes {tuple(ent.shape)}, {tuple(rel.shape)}")
     if not (torch.isfinite(ent).all() and torch.isfinite(rel).all()):
@@ -256,10 +323,11 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
         raise AssertionError(f"bad evaluation result: {res}")
 
     # the same round through the plain attention, as the reference
-    attention.LAUNCHES["attention_fwd"] = 0
+    reset_launches()
     ent_p, rel_p, res_p, times_p = serve(fusion_plain)
-    if attention.LAUNCHES["attention_fwd"] != 0:
-        raise AssertionError("attention_impl='torch' still launched the kernel")
+    if any(attention.LAUNCHES.values()):
+        raise AssertionError(f"attention_impl='torch' still launched the kernel: "
+                             f"{attention.LAUNCHES}")
     d_ent = float((ent - ent_p).abs().max())
     d_rel = float((rel - rel_p).abs().max())
     d_mrr = abs(res["mrr"] - res_p["mrr"])
@@ -275,7 +343,130 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
     return dict(times=t, times_plain=times_p, launches=launches, expected=expect,
                 metrics={k: res[k] for k in ("hits10", "hits5", "hits1", "mrr", "n")},
                 mrr_plain=res_p["mrr"], max_abs_ent=d_ent, max_abs_rel=d_rel,
-                rank_agreement=rank_agree, profile=profile_serve(lambda: serve(fusion)))
+                rank_agreement=rank_agree,
+                profile=profile_run(lambda: serve(fusion), "profile") if on_card else None)
+
+
+# -- phase 4: the training step --------------------------------------------------
+
+
+def phase_train(data_dir: str, cfg: dict = TRAIN, device=None):
+    """One epoch of the fusion step on a kernel-path trainer and on a
+    same-seed plain-attention trainer; the launch counts, the loss terms and
+    the two runs' agreement are checked, then a few steps are profiled."""
+    t = {}
+    t0 = time.perf_counter()
+    write_zsl_dataset(data_dir, n_ent=cfg["n_ent"], n_rel=cfg["n_rel"],
+                      n_unseen=cfg["n_unseen"], triples_per_rel=cfg["triples_per_rel"],
+                      image_size=cfg["image_px"], seed=1)
+    data = load_zsl_dataset(data_dir, mode="train")
+    table = TripleTable.build(np.asarray(data["triples"]).T,
+                              len(data["e2id"]), len(data["r2id"]))
+    t["fixture_s"] = time.perf_counter() - t0
+
+    def trainer(impl):
+        # a store each: training images draw from the store's own generator
+        store = MultimodalStore(data["mm_info"], data["rel_des"], MultimodalPipelineConfig(
+            image_size=cfg["image_size"], **cfg.get("pipe", {})))
+        return FusionTrainer(table, store, FusionConfig(
+            model_type=cfg["model_type"], patch_size=cfg["patch_size"], seed=192,
+            attention_impl=impl, **cfg.get("fusion", {})), device=device)
+
+    t0 = time.perf_counter()
+    kern, plain = trainer("auto"), trainer("torch")
+    sync()
+    t["build_models_s"] = time.perf_counter() - t0
+    m3ae = kern.model.M3AEmodel.cfg
+    on_card = kern.device.type == "cuda"
+    # per step: the representation, the relation descriptions and the masked
+    # encoder at head_dim 64, the decoder at head_dim 32
+    per_step = {"attention_fwd": 3 * m3ae.depth, "attention_fwd_packed": m3ae.dec_depth}
+
+    def epoch(tr):
+        infos = []
+        reset_launches()
+        t0 = time.perf_counter()
+        mean = tr.train_epoch(on_step=infos.append)
+        sync()
+        secs = time.perf_counter() - t0
+        steps = [{k: float(v) for k, v in info.items()} for info in infos]
+        return mean, steps, secs, dict(attention.LAUNCHES)
+
+    mean_k, steps_k, t["epoch_s"], launches = epoch(kern)
+    n = len(steps_k)
+    expect = {k: on_card * n * c for k, c in per_step.items()}
+    log(f"[train] kernel epoch: {n} steps in {t['epoch_s']:.2f} s "
+        f"({t['epoch_s'] / max(n, 1) * 1e3:.1f} ms/step)  launches {launches}  "
+        f"expected {expect} ({per_step} per step)")
+    if n != kern.steps_per_epoch or n == 0:
+        raise AssertionError(f"{n} steps, expected {kern.steps_per_epoch}")
+    if launches != expect:
+        raise AssertionError(f"attention kernels launched {launches} times in "
+                             f"{n} training steps, expected {expect}")
+    mean_p, steps_p, t["epoch_plain_s"], launches_p = epoch(plain)
+    log(f"[train] plain epoch: {len(steps_p)} steps in {t['epoch_plain_s']:.2f} s  "
+        f"launches {launches_p}")
+    if any(launches_p.values()):
+        raise AssertionError(f"attention_impl='torch' launched the kernel: {launches_p}")
+    if len(steps_p) != n:
+        raise AssertionError(f"plain epoch ran {len(steps_p)} steps, kernel epoch {n}")
+
+    def rel_err(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) if a[k] != b[k] else 0.0
+                   for k in INFO_KEYS)
+
+    first = rel_err(steps_k[0], steps_p[0])
+    epoch_err = {k: abs(mean_k[k] - mean_p[k]) for k in INFO_KEYS}
+    log(f"[train] first step, kernel: " + "  ".join(f"{k} {steps_k[0][k]:.6f}" for k in INFO_KEYS))
+    log(f"[train] first step, plain:  " + "  ".join(f"{k} {steps_p[0][k]:.6f}" for k in INFO_KEYS))
+    log(f"[train] epoch mean, kernel: " + "  ".join(f"{k} {mean_k[k]:.6f}" for k in INFO_KEYS))
+    log(f"[train] epoch mean, plain:  " + "  ".join(f"{k} {mean_p[k]:.6f}" for k in INFO_KEYS))
+    log(f"[train] kernel vs plain: first step max rel {first:.3e} (tol {FIRST_STEP_RTOL:g}); "
+        f"epoch means max |d| {max(epoch_err.values()):.3e} "
+        f"(tol {EPOCH_RTOL:g} rel + {EPOCH_ATOL:g})")
+    if first > FIRST_STEP_RTOL:
+        raise AssertionError(f"first training step disagrees: max rel {first}")
+    far = {k: d for k, d in epoch_err.items() if d > EPOCH_RTOL * abs(mean_p[k]) + EPOCH_ATOL}
+    if far:
+        raise AssertionError(f"epoch means disagree: {far}")
+
+    # step times in turns (kernel, plain, plain, kernel): a second epoch of
+    # each, in the reverse order, so neither path gains from running second
+    _, steps_p2, t["epoch2_plain_s"], launches_p2 = epoch(plain)
+    _, steps_k2, t["epoch2_s"], launches_k2 = epoch(kern)
+    if launches_k2 != expect or any(launches_p2.values()):
+        raise AssertionError(f"second epochs launched {launches_k2} (kernel) and "
+                             f"{launches_p2} (plain), expected {expect} and none")
+    bad = [(i, k) for i, s in enumerate(steps_k + steps_p + steps_p2 + steps_k2)
+           for k, v in s.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite loss terms (step, term): {bad[:8]}")
+    step_ms = {"kernel": (t["epoch_s"] + t["epoch2_s"]) / (2 * n) * 1e3,
+               "plain": (t["epoch_plain_s"] + t["epoch2_plain_s"]) / (2 * n) * 1e3}
+    log(f"[train] step wall time in turns (kernel {t['epoch_s']:.2f} s, plain "
+        f"{t['epoch_plain_s']:.2f} s, plain {t['epoch2_plain_s']:.2f} s, kernel "
+        f"{t['epoch2_s']:.2f} s per epoch): kernel {step_ms['kernel']:.1f} ms/step, "
+        f"plain {step_ms['plain']:.1f} ms/step")
+
+    def profile_steps(tr, tag):
+        # a few steps of an epoch (producer thread included) under the
+        # profiler; the batches come from the trainer's own sampler
+        sampler = tr.sampler
+        tr.sampler = list(itertools.islice(iter(sampler), PROFILE_STEPS))
+        try:
+            return dict(profile_run(tr.train_epoch, tag), steps=PROFILE_STEPS)
+        finally:
+            tr.sampler = sampler
+
+    prof = None
+    if on_card:
+        prof = {"kernel": profile_steps(kern, "train-profile"),
+                "plain": profile_steps(plain, "train-profile-plain")}
+    return dict(times=t, steps=n, step_ms=step_ms, launches=launches,
+                launches_per_step=per_step,
+                info_first_kernel=steps_k[0], info_first_plain=steps_p[0],
+                info_mean_kernel=mean_k, info_mean_plain=mean_p,
+                first_step_max_rel=first, epoch_max_abs=epoch_err, profile=prof)
 
 
 def main() -> int:
@@ -290,28 +481,37 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = attention.build()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    ptxas = attention.BUILD_DIR / "attention_fwd.ptxas.txt"
+    ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
         log(ptxas.read_text().strip())
 
     recs = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        slice_info = phase_slice(tmp)
+        slice_info = phase_slice(os.path.join(tmp, "serve"))
+        train_info = phase_train(os.path.join(tmp, "train"))
 
-    line = next(r for r in recs if r["case"] == "entity" and r["dtype"] == "float32")
-    kernels = {"kernels": [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "mre_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "mre_tpu/ops/pallas/attention.py:81",
-        "launches": slice_info["launches"]["attention_fwd"],
-        "max_abs_err": line["max_abs_err"], "ms": line["ms"],
-        "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
-        "bound_by": line["bound_by"], "library_ms": line["library_ms"],
-    }]}
+    def entry(name, replaces, case):
+        """One kernel's line: its times at ``case`` (float32), its launches
+        on each path of this run."""
+        rec = next(r for r in recs if r["case"] == case and r["dtype"] == "float32")
+        by_path = {"serving": slice_info["launches"][name],
+                   "training": train_info["launches"][name]}
+        return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "case": case,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+    kernels = {"kernels": [
+        entry("attention_fwd", "mre_tpu/ops/pallas/attention.py:81", "entity"),
+        entry("attention_fwd_packed", "mre_tpu/ops/pallas/attention.py:94", "decoder"),
+    ]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
-                       slice=slice_info, kernels=kernels["kernels"]), f, indent=1)
+                       slice=slice_info, train=train_info, kernels=kernels["kernels"]),
+                  f, indent=1)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

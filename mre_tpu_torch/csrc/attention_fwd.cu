@@ -1,8 +1,18 @@
 // Masked multi-head attention forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_attention_kernel` of
-// mre_tpu/ops/pallas/attention.py (lines 81-91, launched by `_pallas_forward`
-// through `pl.pallas_call` at line 170). Same function, per (b, h):
+// Replaces both TPU kernel bodies of mre_tpu/ops/pallas/attention.py, each
+// launched by `_pallas_forward` through `pl.pallas_call` at line 170:
+//
+// * `_attention_kernel` (lines 81-91), head_dim >= 64: the M3AE encoder
+//   (6 heads of 64 at the `small` preset; 80 at `huge`);
+// * `_attention_kernel_packed` (lines 94-136), head_dim < 64: the M3AE decoder
+//   (16 heads of 32 at every preset). On the TPU it stacks four 32-wide heads
+//   block-diagonally into one 128-lane MXU operand; its output is, head for
+//   head, the same function as `_attention_kernel`. A Hopper thread has no
+//   128-lane operand to fill, so the packing does not carry over: the port
+//   runs the same kernel at HD = 32.
+//
+// Same function, per (b, h):
 //
 //     out = softmax(where(pad > 0, -1e7, (q . k^T) * scale)) . v
 //
@@ -24,9 +34,22 @@
 // 1.01 GB of q, k, v and out in float32: at 67 TFLOP/s (float32 outside the
 // tensor cores) and 3.35 TB/s that is 1.21 ms of arithmetic against 0.30 ms
 // of memory, so float32 is bound by operations; in bfloat16 (0.50 GB) memory
-// would bind first on the tensor cores. This first version computes on the
-// float32 cores in both types (no wgmma, no TMA, no pipelining) and is right
-// before it is fast.
+// would bind first on the tensor cores. At the decoder shape of the training
+// step (B 60, H 16, N 321, hd 32) it is 12.7 GFLOP against 158 MB: bound by
+// operations too (0.19 ms). This first version computes on the float32 cores
+// in both types (no wgmma, no TMA, no pipelining) and is right before it is
+// fast.
+//
+// Tiles at HD = 32. K and V tiles take half the shared memory of HD = 64, but
+// the logit tile [BLOCK_K][BLOCK_Q] does not shrink with HD: a block needs
+// 16.5 KB at BLOCK_K = 32, 33 KB at 64 and 66 KB at 128, so 13, 6 or 3 blocks
+// fit an SM's shared memory; at 95 registers per thread (ptxas, no spills)
+// the register file holds 10. Each thread's q.k is a chain of dependent FMAs,
+// so the kernel lives on the warps the SM can switch between, and the
+// smallest tile that keeps 10 blocks resident is the fastest: at the decoder
+// shape, float32, BLOCK_K 32 / 64 / 128 take 0.747 / 0.839 / 1.276 ms on an
+// H100 80GB HBM3 at 700 W (`python -m mre_tpu_torch.tools.tile_sweep`).
+// BLOCK_K_HD32 overrides the choice for such a sweep; HD 64 and 80 keep 64.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -34,8 +57,16 @@
 
 namespace {
 
+#ifndef BLOCK_K_HD32
+#define BLOCK_K_HD32 32
+#endif
+
 constexpr int BLOCK_Q = 64;   // query rows per block = threads per block
-constexpr int BLOCK_K = 64;   // key rows per shared-memory tile
+
+// key rows per shared-memory tile
+template <int HD> __host__ __device__ constexpr int block_k() {
+    return HD <= 32 ? BLOCK_K_HD32 : 64;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -47,6 +78,7 @@ __global__ void __launch_bounds__(BLOCK_Q)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, int H, int N, float scale) {
+    constexpr int BLOCK_K = block_k<HD>();
     extern __shared__ float smem[];
     float* ks = smem;                    // [BLOCK_K][HD]
     float* vs = ks + BLOCK_K * HD;       // [BLOCK_K][HD]
@@ -120,6 +152,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int HD, typename T>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, int B, int H, int N, float scale, cudaStream_t stream) {
+    constexpr int BLOCK_K = block_k<HD>();
     const size_t smem = sizeof(float) * (2 * BLOCK_K * HD + BLOCK_K * BLOCK_Q + BLOCK_K);
     cudaError_t err = cudaFuncSetAttribute(
         attention_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -144,9 +177,11 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (B <= 0 || H <= 0 || N <= 0) return -1;
     if (dtype == 0) {
+        if (head_dim == 32) return launch<32, float>(q, k, v, m, out, B, H, N, scale, s);
         if (head_dim == 64) return launch<64, float>(q, k, v, m, out, B, H, N, scale, s);
         if (head_dim == 80) return launch<80, float>(q, k, v, m, out, B, H, N, scale, s);
     } else if (dtype == 1) {
+        if (head_dim == 32) return launch<32, __nv_bfloat16>(q, k, v, m, out, B, H, N, scale, s);
         if (head_dim == 64) return launch<64, __nv_bfloat16>(q, k, v, m, out, B, H, N, scale, s);
         if (head_dim == 80) return launch<80, __nv_bfloat16>(q, k, v, m, out, B, H, N, scale, s);
     }

@@ -1,4 +1,4 @@
-"""Host-side multimodal data pipeline, evaluation form (port of mre_tpu/data/multimodal.py).
+"""Host-side multimodal data pipeline (port of mre_tpu/data/multimodal.py).
 
 Text is tokenized once per entity / relation into dense int32 arrays with
 the hashing tokenizer (1.0 = PAD masks). Entity images are decoded, cropped
@@ -7,9 +7,13 @@ normalized; entities without an image get the reference's scaled-Xavier
 noise placeholder. Decoding and resizing use ``data/images.py`` (numpy +
 zlib) and reproduce the JAX package's PIL pipeline bit for bit.
 
-This slice ports the evaluation batches (``generate_batch`` with eval
-seeds). Training augmentation (per-step seeds, flips), the pre-decoded image
-cache and HuggingFace tokenizers come with the training slice.
+Evaluation batches draw each entity's crop from a seed derived from its
+id, so repeated sweeps are identical. Training batches draw one seed per
+slot from the store's own generator (``self._rng``, seeded from the config)
+and add a 50% horizontal flip, as the JAX store does, so one seed gives the
+same training images on both sides. ``generate_batch`` defaults to the
+evaluation form (``train=False``), the form the port's serving path asks
+for. The pre-decoded image cache and HuggingFace tokenizers are not ported.
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ class MultimodalStore:
         cfg = self.config
         self.tokenizer = HashingTokenizer(cfg.vocab_size)
         self.vocab_size = self.tokenizer.vocab_size
+        self._rng = np.random.default_rng(cfg.seed)
 
         if cfg.image_normalization == "imagenet":
             self.image_mean, self.image_std = IMAGENET_MEAN, IMAGENET_STD
@@ -141,14 +146,20 @@ class MultimodalStore:
         limit = 1.0 / np.sqrt(s)
         return (rng.uniform(-limit, limit, (s, s, 3)) * 10.0).astype(np.float32)
 
-    def entity_images(self, node_ids: np.ndarray, workers: int = 8) -> np.ndarray:
-        """Evaluation images [n, S, S, 3] float32. Each entity's crop comes
-        from a seed derived from its id, so repeated sweeps are identical."""
+    def entity_images(self, node_ids: np.ndarray, train: bool = False,
+                      workers: int = 8) -> np.ndarray:
+        """Images [n, S, S, 3] float32: decode, random resized crop, and in
+        training a 50% horizontal flip. Per-slot seeds are drawn up front
+        (thread-safe, order-deterministic): from ``self._rng`` in training,
+        from the entity id in evaluation."""
         cfg = self.config
         node_ids = np.asarray(node_ids)
         mean = np.asarray(self.image_mean, np.float32)
         std = np.asarray(self.image_std, np.float32)
-        seeds = node_ids.astype(np.int64) * 2654435761 + cfg.seed
+        if train:
+            seeds = self._rng.integers(0, 2**63, size=len(node_ids))
+        else:
+            seeds = node_ids.astype(np.int64) * 2654435761 + cfg.seed
         out = np.empty((len(node_ids), cfg.image_size, cfg.image_size, 3), np.float32)
 
         def work(k):
@@ -156,6 +167,8 @@ class MultimodalStore:
             rng = np.random.default_rng(seeds[k])
             if self.has_image[i]:
                 img = random_resized_crop(rng, decode_png(self.images[i]), cfg.image_size)
+                if train and rng.random() < 0.5:
+                    img = img[:, ::-1]
                 out[k] = (img.astype(np.float32) / 255.0 - mean) / std
             else:
                 out[k] = self._placeholder(rng, cfg.image_size)
@@ -168,9 +181,9 @@ class MultimodalStore:
                 work(k)
         return out
 
-    def generate_batch(self, node_ids, rel_ids) -> dict:
-        """Evaluation batch (the JAX ``generate_batch(..., train=False)``,
-        reference MMKGDataset.generate_batch, module/data.py:272-314)."""
+    def generate_batch(self, node_ids, rel_ids, train: bool = False) -> dict:
+        """Reference MMKGDataset.generate_batch semantics
+        (module/data.py:272-314), pre-tokenized and batched."""
         node_ids = np.asarray(node_ids, np.int32)
         rel_ids = np.asarray(rel_ids, np.int32)
         batch = {
@@ -180,7 +193,7 @@ class MultimodalStore:
             "rel_des_padding_mask": self.rel_mask[rel_ids],
         }
         if not self.config.text_only:
-            batch["image"] = self.entity_images(node_ids)
+            batch["image"] = self.entity_images(node_ids, train)
         if self.config.image_only:
             batch.pop("text", None)
             batch.pop("text_padding_mask", None)

@@ -1,11 +1,19 @@
-"""Masked Multimodal Autoencoder, representation pass (port of mre_tpu/models/m3ae.py).
+"""Masked Multimodal Autoencoder (port of mre_tpu/models/m3ae.py).
 
-All submodules are built, decoder included, so the ``state_dict`` mirrors
-the flax tree and carried weights round-trip. This slice ports the
-unmasked representation pass only (``forward_representation``,
-m3ae.py:118-139): [cls | image patches | text tokens] with modality type
-embeddings and fixed sin-cos positions through the shared pre-LN encoder.
-The masked encoder pass, the decoder pass and masking come with training.
+Text-token + image-patch embeddings with modality type embeddings and fixed
+sin-cos positions, a shared pre-LN encoder over [cls | image | text], MAE
+random masking (one shared permutation per batch, static keep lengths) and a
+decoder that reconstructs image patches and text tokens.
+
+* ``forward_representation`` — the unmasked pass (m3ae.py:118-139);
+* ``forward_encoder`` — the masked pass (m3ae.py:143-188) over
+  1 + keep_img + keep_txt tokens;
+* ``forward_decoder`` — mask tokens restored, the decoder over every
+  position (m3ae.py:192-228);
+* ``forward`` — the JAX ``__call__``: encoder then decoder.
+
+The masking permutations are arguments (``image_ids_shuffle``,
+``text_ids_shuffle``), not draws: see ``ops/masking.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from torch import nn
 from mre_tpu_torch.core.config import Config, transformer_preset
 from mre_tpu_torch.models.initializers import Dense, normal
 from mre_tpu_torch.models.transformer import MLP, Transformer
+from mre_tpu_torch.ops.masking import random_masking, restore_with_mask_tokens
 from mre_tpu_torch.ops.pos_embed import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
 
 
@@ -23,7 +32,10 @@ def m3ae_config(model_type: str = "small", updates: dict | None = None) -> Confi
     cfg = Config(dict(
         model_type=model_type,
         output_head_depth=0,
+        att_drop=0.0, drop=0.0, drop_path=0.0,
         use_type_embedding=True,
+        image_mask_ratio=0.75,
+        text_mask_ratio=0.75,
         attention_impl="auto",      # auto | kernel | torch (transformer.py)
     ))
     cfg.update(transformer_preset(model_type))
@@ -60,10 +72,11 @@ class M3AE(nn.Module):
                 continue
             setattr(self, name, nn.Parameter(torch.zeros(1, 1, cfg[width])))
         impl = cfg.get("attention_impl", "auto")
+        drops = dict(att_drop=cfg.att_drop, drop=cfg.drop, drop_path=cfg.drop_path)
         self.encoder = Transformer(cfg.emb_dim, cfg.depth, cfg.num_heads,
-                                   cfg.mlp_ratio, impl)
+                                   cfg.mlp_ratio, impl, **drops)
         self.decoder = Transformer(cfg.dec_emb_dim, cfg.dec_depth,
-                                   cfg.dec_num_heads, cfg.mlp_ratio, impl)
+                                   cfg.dec_num_heads, cfg.mlp_ratio, impl, **drops)
         self.decoder_input_projection = Dense(cfg.emb_dim, cfg.dec_emb_dim)
         head_norm = cfg.output_head_depth > 0
         self.decoder_image_output = MLP(cfg.dec_emb_dim, cfg.dec_emb_dim,
@@ -95,16 +108,105 @@ class M3AE(nn.Module):
         toks = [self.cls_token.expand(batch, 1, emb)]
         pads = [torch.zeros(batch, 1, dtype=torch.float32, device=dev)]
         if image is not None:
-            pos = torch.from_numpy(get_2d_sincos_pos_embed(
-                emb, image.shape[1], self.patch_size)).to(dev)
-            toks.append(self.image_embedding(image) + pos
-                        + self._type_emb("encoder_image_type_embedding"))
+            toks.append(self._embed_image(image))
             pads.append(torch.zeros(batch, image.shape[1], dtype=torch.float32,
                                     device=dev))
         if text is not None:
-            pos = torch.from_numpy(get_1d_sincos_pos_embed(emb, text.shape[1])).to(dev)
-            toks.append(self.text_embedding(text.long()) + pos
-                        + self._type_emb("encoder_text_type_embedding"))
+            toks.append(self._embed_text(text))
             pads.append(text_padding_mask.to(torch.float32))
         x = self.encoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1))
         return x[:, :1, :], x
+
+    def _embed_image(self, image):
+        pos = torch.from_numpy(get_2d_sincos_pos_embed(
+            self.cfg.emb_dim, image.shape[1], self.patch_size)).to(image.device)
+        return (self.image_embedding(image) + pos
+                + self._type_emb("encoder_image_type_embedding"))
+
+    def _embed_text(self, text):
+        pos = torch.from_numpy(get_1d_sincos_pos_embed(
+            self.cfg.emb_dim, text.shape[1])).to(text.device)
+        return (self.text_embedding(text.long()) + pos
+                + self._type_emb("encoder_text_type_embedding"))
+
+    def forward_encoder(self, image, text, text_padding_mask,
+                        image_ids_shuffle=None, text_ids_shuffle=None):
+        """Masked encoder pass. Each present modality keeps
+        int(L·(1 − ratio)) tokens, the first of its ``*_ids_shuffle``
+        permutation [L]. Returns (cls, image_x, text_x, image_mask,
+        text_mask, image_ids_restore, text_ids_restore) as JAX does."""
+        ref = image if image is not None else text
+        batch, dev = ref.shape[0], ref.device
+        emb = self.cfg.emb_dim
+        toks = [self.cls_token.expand(batch, 1, emb)]
+        pads = [torch.zeros(batch, 1, dtype=torch.float32, device=dev)]
+        image_mask = image_ids_restore = text_mask = text_ids_restore = None
+        img_keep = 0
+        if image is not None:
+            img_keep = int(image.shape[1] * (1.0 - self.cfg.image_mask_ratio))
+            m = random_masking(self._embed_image(image), img_keep, image_ids_shuffle)
+            toks.append(m.kept)
+            pads.append(torch.zeros(batch, img_keep, dtype=torch.float32, device=dev))
+            image_mask, image_ids_restore = m.mask, m.ids_restore
+        if text is not None:
+            txt_keep = int(text.shape[1] * (1.0 - self.cfg.text_mask_ratio))
+            m = random_masking(self._embed_text(text), txt_keep, text_ids_shuffle,
+                               text_padding_mask.to(torch.float32))
+            toks.append(m.kept)
+            pads.append(m.padding_mask_kept)
+            text_mask, text_ids_restore = m.mask, m.ids_restore
+        x = self.encoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1))
+        cls_x = x[:, :1, :]
+        if image is None:
+            image_x, text_x = None, x[:, 1:, :]
+        elif text is None:
+            image_x, text_x = x[:, 1:, :], None
+        else:
+            image_x, text_x = x[:, 1:img_keep + 1, :], x[:, img_keep + 1:, :]
+        return (cls_x, image_x, text_x, image_mask, text_mask,
+                image_ids_restore, text_ids_restore)
+
+    def forward_decoder(self, cls_x, image_x, text_x, image_ids_restore,
+                        text_ids_restore, text_padding_mask):
+        """Decoder over [cls | every image position | every text position],
+        dropped positions filled with the mask embeddings; the text part
+        takes the FULL padding mask (m3ae.py:216)."""
+        width = self.cfg.dec_emb_dim
+        batch, dev = cls_x.shape[0], cls_x.device
+        toks = [self.decoder_input_projection(cls_x)]
+        pads = [torch.zeros(batch, 1, dtype=torch.float32, device=dev)]
+        img_len = 0
+        if image_x is not None:
+            img_len = image_ids_restore.shape[0]
+            x = restore_with_mask_tokens(self.decoder_input_projection(image_x),
+                                         self.image_mask_embedding, image_ids_restore)
+            pos = torch.from_numpy(get_2d_sincos_pos_embed(
+                width, img_len, self.patch_size)).to(dev)
+            toks.append(x + pos + self._type_emb("decoder_image_type_embedding"))
+            pads.append(torch.zeros(batch, img_len, dtype=torch.float32, device=dev))
+        if text_x is not None:
+            x = restore_with_mask_tokens(self.decoder_input_projection(text_x),
+                                         self.text_mask_embedding, text_ids_restore)
+            pos = torch.from_numpy(get_1d_sincos_pos_embed(
+                width, text_ids_restore.shape[0])).to(dev)
+            toks.append(x + pos + self._type_emb("decoder_text_type_embedding"))
+            pads.append(text_padding_mask.to(torch.float32))
+        x = self.decoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1))
+        if image_x is None:
+            return None, self.decoder_text_output(x[:, 1:, :])
+        if text_x is None:
+            return self.decoder_image_output(x[:, 1:, :]), None
+        return (self.decoder_image_output(x[:, 1:img_len + 1, :]),
+                self.decoder_text_output(x[:, img_len + 1:, :]))
+
+    def forward(self, image, text, text_padding_mask, image_ids_shuffle=None,
+                text_ids_shuffle=None):
+        """The JAX ``__call__``: (image_output, text_output, image_mask,
+        text_mask)."""
+        (cls_x, image_x, text_x, image_mask, text_mask,
+         image_ids_restore, text_ids_restore) = self.forward_encoder(
+            image, text, text_padding_mask, image_ids_shuffle, text_ids_shuffle)
+        image_output, text_output = self.forward_decoder(
+            cls_x, image_x, text_x, image_ids_restore, text_ids_restore,
+            text_padding_mask)
+        return image_output, text_output, image_mask, text_mask

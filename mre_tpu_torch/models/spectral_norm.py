@@ -1,8 +1,15 @@
-"""Spectrally normalized Dense layer, eval form (mre_tpu/models/spectral_norm.py).
+"""Spectrally normalized Dense layer (port of mre_tpu/models/spectral_norm.py).
 
-In eval, σ = uᵀ W v comes from the STORED ``u`` and ``v`` buffers with no
-power-iteration step (spectral_norm.py:62-66; torch keeps both buffers).
-The training-time update step comes with the training slice.
+Semantics of torch's spectral norm with n_power_iterations=1, eps=1e-12:
+
+* ``update_stats=True`` (training) runs one power-iteration step on the
+  stored buffers, v ← l2(Wᵀu), u ← l2(W v), stores both without gradient,
+  and normalizes by σ = uᵀ W v with the NEW u, v (spectral_norm.py:56-61);
+* ``update_stats=False`` (eval) takes σ from the STORED ``u`` and ``v``
+  with no step (spectral_norm.py:62-66; torch keeps both buffers).
+
+Either way u and v are constants to autograd: the gradient flows through
+W only, in σ and in the product.
 
 ``weight`` is [out, in] (the flax ``kernel`` transposed); ``u`` [out] and
 ``v`` [in] are the flax ``"spectral"`` collection.
@@ -43,6 +50,13 @@ class SNDense(nn.Module):
         self.u.copy_(_l2(torch.randn(self.features, generator=gen)))
         self.v.copy_(_l2(self.weight.T @ self.u))
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = False):
+        if update_stats:
+            with torch.no_grad():
+                v = _l2(self.weight.T @ self.u)
+                # new tensors, not in-place copies: the old buffers may be
+                # saved for the backward of an earlier call
+                self.u = _l2(self.weight @ v)
+                self.v = v
         sigma = torch.einsum("o,oi,i->", self.u, self.weight, self.v)
         return F.linear(x, self.weight / sigma, self.bias)

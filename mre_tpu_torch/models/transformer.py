@@ -101,9 +101,20 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
+    """Pre-LN block stack + final LayerNorm.
+
+    ``att_drop``, ``drop`` and ``drop_path`` are the JAX config's dropout
+    and stochastic-depth rates. The M3AE presets set all three to 0, where
+    DropPath and Dropout are identities on every path; a nonzero rate is
+    refused, because the port's random bits could not match JAX's."""
+
     def __init__(self, emb_dim: int = 1024, depth: int = 24, num_heads: int = 16,
-                 mlp_ratio: int = 4, attention_impl: str = "auto"):
+                 mlp_ratio: int = 4, attention_impl: str = "auto",
+                 att_drop: float = 0.0, drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
+        if att_drop or drop or drop_path:
+            raise ValueError(f"dropout is not ported: att_drop={att_drop}, "
+                             f"drop={drop}, drop_path={drop_path} must be 0")
         self.depth = depth
         for i in range(depth):
             self.add_module(f"Block_{i}", Block(emb_dim, num_heads, mlp_ratio,

@@ -1,19 +1,21 @@
-"""UnifiedModel, serving form (port of mre_tpu/models/unified.py).
+"""UnifiedModel (port of mre_tpu/models/unified.py).
 
 * M3AE multimodal encoder → per-node cls embeddings;
 * one RGCNConv (emb_dim → dim, 30 bases) + LeakyReLU(0.2);
-* relation-description encoder: M3AE text pass → two spectral-norm Dense
-  layers;
+* relation-description encoder: M3AE text pass (no gradient) → two
+  spectral-norm Dense layers;
 * conditional generator head: text encoding ⊕ noise → spectral-norm fc →
-  the same map layers → std-LayerNorm.
+  the same map layers → std-LayerNorm;
+* bidirectional InfoNCE between mean image / text tokens (τ = 0.05).
 
 Reference quirk kept (``norm_rel_emb=False``): ``forward_relation_emb``
 drops the LayerNorm (module/model.py:609 discards its result) while
 ``generate`` applies it (model.py:686).
 
-``forward`` is the JAX ``__call__(is_evaluate=True)``: it returns
-(x_gcn, rel_emb). The training form (masked encoder, decoder, contrastive
-loss) comes with the training slice.
+``forward`` is the JAX ``__call__(is_evaluate=True)``: (x_gcn, rel_emb).
+``forward_train`` is the training ``__call__``: it adds the masked encoder,
+the decoder and the contrastive loss, and steps the spectral norms of the
+relation map layers when ``update_sn``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from mre_tpu_torch.models.m3ae import M3AE, m3ae_config
 from mre_tpu_torch.models.rgcn import RGCNConv
 from mre_tpu_torch.models.spectral_norm import SNDense
 from mre_tpu_torch.models.transformer import LayerNormalization
+from mre_tpu_torch.ops import losses as L
 
 
 def unified_config(model_type: str = "small", updates: dict | None = None) -> Config:
@@ -36,7 +39,10 @@ def unified_config(model_type: str = "small", updates: dict | None = None) -> Co
         noise_dim=15,
         num_bases=30,
         patch_size=16,
+        image_mask_ratio=0.75,
+        text_mask_ratio=0.75,
         leaky_slope=0.2,
+        contrastive=True,
         norm_rel_emb=False,
         attention_impl="auto",       # forwarded to the M3AE transformers
     ))
@@ -54,7 +60,10 @@ class UnifiedModel(nn.Module):
         super().__init__()
         cfg = Config(config)
         self.cfg = cfg
-        m3ae_cfg = m3ae_config(cfg.model_type, dict(attention_impl=cfg.attention_impl))
+        m3ae_cfg = m3ae_config(cfg.model_type, dict(
+            image_mask_ratio=cfg.image_mask_ratio,
+            text_mask_ratio=cfg.text_mask_ratio,
+            attention_impl=cfg.attention_impl))
         self.reduced_dim = m3ae_cfg.emb_dim
         self.dim = cfg.emb_dim
         self.M3AEmodel = M3AE(text_vocab_size, cfg.patch_size,
@@ -77,13 +86,18 @@ class UnifiedModel(nn.Module):
     # -- relation-description encoder ---------------------------------------
 
     def _text_cls(self, description_tokens, des_padding_mask):
-        rel_emb, _ = self.M3AEmodel.forward_representation(
-            None, description_tokens, des_padding_mask)
-        return rel_emb.detach().reshape(rel_emb.shape[0], -1)
+        # the JAX stop_gradient (unified.py:109): no graph is built, so a
+        # training step keeps no activations of this pass
+        with torch.no_grad():
+            rel_emb, _ = self.M3AEmodel.forward_representation(
+                None, description_tokens, des_padding_mask)
+        return rel_emb.reshape(rel_emb.shape[0], -1)
 
-    def forward_relation_emb(self, description_tokens, des_padding_mask):
+    def forward_relation_emb(self, description_tokens, des_padding_mask,
+                             update_sn: bool = False):
         rel_emb = self._text_cls(description_tokens, des_padding_mask)
-        rel_emb = self.des_rel_map_layer2(self.des_rel_map_layer1(rel_emb))
+        rel_emb = self.des_rel_map_layer1(rel_emb, update_stats=update_sn)
+        rel_emb = self.des_rel_map_layer2(rel_emb, update_stats=update_sn)
         if self.cfg.norm_rel_emb:
             rel_emb = self.layer_norm(rel_emb)
         return rel_emb
@@ -105,3 +119,38 @@ class UnifiedModel(nn.Module):
         rel_emb = self.forward_relation_emb(batch["rel_des"],
                                             batch["rel_des_padding_mask"])
         return x_gcn, rel_emb
+
+    # -- training forward (JAX __call__ with is_evaluate=False) ---------------
+
+    def forward_train(self, edge_index, edge_type, batch, image_ids_shuffle,
+                      text_ids_shuffle, edge_mask=None, update_sn: bool = False,
+                      node_mask=None):
+        """(x_gcn, rel_emb, batch_output) as the JAX ``__call__``; the masking
+        permutations [L] of the image patches and the text tokens are
+        arguments (``ops/masking.py``)."""
+        image = batch.get("image_patches")
+        text = batch["text"]
+        text_padding_mask = batch["text_padding_mask"]
+        m3ae = self.M3AEmodel
+
+        cls_x, _ = m3ae.forward_representation(image, text, text_padding_mask)
+        x_gcn = self.gcn_forward_encoder(cls_x, edge_index, edge_type, edge_mask)
+        rel_emb = self.forward_relation_emb(
+            batch["rel_des"], batch["rel_des_padding_mask"], update_sn=update_sn)
+
+        (enc_cls, image_x, text_x, image_mask, text_mask,
+         image_ids_restore, text_ids_restore) = m3ae.forward_encoder(
+            image, text, text_padding_mask, image_ids_shuffle, text_ids_shuffle)
+        image_output, text_output = m3ae.forward_decoder(
+            enc_cls, image_x, text_x, image_ids_restore, text_ids_restore,
+            text_padding_mask)
+
+        if self.cfg.contrastive and image is not None and text is not None:
+            loss_c, c_acc = L.contrastive_loss(image_x.mean(dim=1), text_x.mean(dim=1),
+                                               row_mask=node_mask)
+        else:
+            loss_c = c_acc = torch.zeros((), device=cls_x.device)
+        return x_gcn, rel_emb, dict(
+            image_output=image_output, text_output=text_output,
+            image_mask=image_mask, text_mask=text_mask,
+            contrastive_loss=loss_c, contrastive_accuracy=c_acc)

@@ -1,16 +1,21 @@
 """Fused masked multi-head attention: the Hopper kernel and its plain twin.
 
 Port of mre_tpu/ops/pallas/attention.py (``fused_attention``,
-``_attention_kernel``, ``_attention_reference``). Layouts are the JAX
-package's: q, k, v ``[B, H, N, hd]``, ``padding_mask`` ``[B, N]`` with
-1.0 = PAD. Masked logits are where-selected to −1e7 before the softmax.
+``_attention_kernel``, ``_attention_kernel_packed``, ``_attention_reference``).
+Layouts are the JAX package's: q, k, v ``[B, H, N, hd]``, ``padding_mask``
+``[B, N]`` with 1.0 = PAD. Masked logits are where-selected to −1e7 before
+the softmax.
 
 * ``attention_reference`` — plain PyTorch, einsums in float32. The CPU path,
   the comparison in ``chip_smoke.py`` and ``attention_impl="torch"`` use it.
 * ``attention_fwd_cuda`` — launches the hand-written sm_90a kernel in
   ``csrc/attention_fwd.cu``. The kernel is compiled with ``nvcc`` at first
   use into ``mre_tpu_torch/_build/`` and bound through a plain C interface
-  with ``ctypes``. ``LAUNCHES["attention_fwd"]`` counts its launches.
+  with ``ctypes``. One kernel serves both TPU bodies: head_dim 64 and 80
+  stand for ``_attention_kernel`` and count in ``LAUNCHES["attention_fwd"]``;
+  head_dim 32 (the M3AE decoder) stands for ``_attention_kernel_packed``,
+  whose head packing is a TPU lane-layout device, and counts in
+  ``LAUNCHES["attention_fwd_packed"]``.
 * ``FusedAttention`` — the ``jax.custom_vjp`` split of the JAX package: the
   forward runs the kernel on a CUDA tensor and the plain version on a CPU
   tensor; the backward recomputes through the plain version, as ``_bwd``
@@ -31,11 +36,17 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "attention_fwd.cu"
 BUILD_DIR = _PKG / "_build"
-HEAD_DIMS = (64, 80)
+HEAD_DIMS = (32, 64, 80)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"attention_fwd": 0}
+LAUNCHES = {"attention_fwd": 0, "attention_fwd_packed": 0}
 _lib = None
+
+
+def launch_key(head_dim: int) -> str:
+    """The counter of the TPU kernel body this head_dim stands for: below 64
+    the JAX package takes ``_attention_kernel_packed``."""
+    return "attention_fwd_packed" if head_dim < 64 else "attention_fwd"
 
 
 def attention_reference(q, k, v, padding_mask, scale):
@@ -59,39 +70,48 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile ``csrc/attention_fwd.cu`` for sm_90a (once per source hash)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libattention_fwd-{digest}.so"
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/attention_fwd.cu`` for sm_90a (once per source hash
+    and ``defines``, e.g. ``("BLOCK_K_HD32=128",)`` for a tile sweep). The
+    ptxas report goes beside the library."""
+    key = _SOURCE.read_bytes() + "\0".join(defines).encode()
+    name = f"libattention_fwd-{hashlib.sha256(key).hexdigest()[:12]}"
+    lib = BUILD_DIR / f"{name}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SOURCE)]
+           *(f"-D{d}" for d in defines), "-o", str(tmp), str(_SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
-    (BUILD_DIR / "attention_fwd.ptxas.txt").write_text(proc.stderr)
+    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
+    return lib
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C entry point."""
+    lib = ctypes.CDLL(str(path))
+    lib.attention_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.attention_fwd.restype = ctypes.c_int
     return lib
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.attention_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
-        lib.attention_fwd.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
-def attention_fwd_cuda(q, k, v, padding_mask, scale: float):
+def attention_fwd_cuda(q, k, v, padding_mask, scale: float, lib=None):
     """Launch the Hopper kernel on CUDA tensors; raises on any input it does
-    not take (no fallback)."""
+    not take (no fallback). ``lib``: a library from ``bind(build(defines))``
+    in place of the default build (a tile sweep)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("attention_fwd_cuda: q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -116,7 +136,7 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float):
             raise ValueError("attention_fwd_cuda: padding_mask must be a "
                              "contiguous float32 [B, N] tensor on q's device")
         mask_ptr = padding_mask.data_ptr()
-    lib = _load()
+    lib = lib if lib is not None else _load()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -125,7 +145,7 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float):
                                _DTYPES[q.dtype], float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd launch failed with CUDA error {rc}")
-    LAUNCHES["attention_fwd"] += 1
+    LAUNCHES[launch_key(hd)] += 1
     return out
 
 

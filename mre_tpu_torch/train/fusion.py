@@ -1,34 +1,86 @@
-"""Fusion learner, serving form (port of mre_tpu/train/fusion.py).
+"""Joint fusion training (port of mre_tpu/train/fusion.py).
 
-``FusionTrainer`` builds the ``UnifiedModel`` and runs what the zero-shot
-serving path asks of it (module/utils.py:479-546):
+One training step (``_build_step``, fusion.py:168-261):
 
-* ``generate_ent_embeddings`` — an M3AE cls pass over every entity in
-  chunks of ``batch_size`` (the last chunk padded with the last id), then
-  one full-graph RGCN sweep over the training triples;
-* ``generate_rel_embeddings`` — the relation-description encoder;
-* ``generate`` — the generator head: description ⊕ noise → embedding.
+  M3AE representation → RGCN over the sampled subgraph → relation-
+  description encoding with the spectral-norm power step → masked encoder
+  → decoder → subgraph-local filtered negative sampling → TransE margin
+  loss + masked image MSE + masked text CE + contrastive → adam on a
+  cosine-warm-restart schedule.
 
-The training step (masking, decoder, losses, negative sampling, optimizer)
-comes with the training slice. Weights are the seeded port init, or carried
-from the JAX package with ``interop.load_flax(trainer.model, params,
-spectral)``.
+Host work per step: neighbor-sampled indices, image decode and crop
+(``data/graph_sampler.py``, ``data/multimodal.py``), patch extraction; text
+is pre-tokenized. ``train_epoch`` assembles batches in a producer thread so
+that host work overlaps the device step.
+
+The step's random parts (the two masking permutations and the negative
+draws) come from one ``torch.Generator`` seeded from ``cfg.seed``; a caller
+may pass them instead (``train_step(graph_batch, draws=...)``), which is
+how the tests feed the JAX step's draws in.
+
+Faithfulness notes kept from the JAX package: the reference trains on the
+un-regularized gcn loss and only logs ``struct_loss`` (``regul_in_loss``
+repairs it); padded rows (the sampler repeats a real node) stay out of
+every loss mean through ``node_mask`` and ``edge_mask``.
+
+Serving (module/utils.py:479-546): ``generate_ent_embeddings`` (an M3AE cls
+pass over every entity in chunks, then one full-graph RGCN sweep),
+``generate_rel_embeddings`` and ``generate`` (the generator head).
+
+Weights are the seeded port init, or carried from the JAX package with
+``interop.load_flax(trainer.model, params, spectral)``. Not ported:
+``compute_dtype`` (bf16 matmuls), the image cache, the mesh and
+``train_distill``.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import math
+import queue
+import threading
 
 import numpy as np
 import torch
 
 from mre_tpu_torch.core.device import resolve_device
-from mre_tpu_torch.data.graph_sampler import edges_from_tasks
-from mre_tpu_torch.data.kg import TripleTable
+from mre_tpu_torch.data.graph_sampler import NeighborSampler, edges_from_tasks
+from mre_tpu_torch.data.kg import DeviceKG, TripleTable
 from mre_tpu_torch.data.multimodal import MultimodalStore
 from mre_tpu_torch.models.initializers import init_weights
 from mre_tpu_torch.models.unified import UnifiedModel, unified_config
+from mre_tpu_torch.ops import losses as L
+from mre_tpu_torch.ops import sampling
 from mre_tpu_torch.ops.patches import extract_patches
+
+INFO_KEYS = ("loss", "gcn_loss", "struct_loss", "image_loss", "text_loss",
+             "contrastive_loss", "text_accuracy", "neg_fail_frac")
+
+
+def cosine_warm_restarts(lr_max: float, lr_min: float, t0: int, t_mult: int = 2,
+                         total_steps: int = 1_000_000):
+    """Step → learning rate of torch CosineAnnealingWarmRestarts
+    (main.py:105-110), equal step for step to the JAX package's optax
+    ``join_schedules`` of ``cosine_decay_schedule`` periods t0, t0·t_mult, …
+    (the last period holds its floor past its end)."""
+    periods, boundaries = [], []
+    t, start = t0, 0
+    while start < total_steps:
+        periods.append(max(t, 1))
+        start += t
+        boundaries.append(start)
+        t *= t_mult
+    boundaries = boundaries[:-1]
+    alpha = lr_min / max(lr_max, 1e-12)
+
+    def schedule(step: int) -> float:
+        i = bisect.bisect_right(boundaries, step)
+        count = min(step - (boundaries[i - 1] if i else 0), periods[i])
+        cosine = 0.5 * (1 + math.cos(math.pi * count / periods[i]))
+        return lr_max * ((1 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 @dataclasses.dataclass
@@ -37,7 +89,29 @@ class FusionConfig:
     emb_dim: int = 200
     noise_dim: int = 15
     patch_size: int = 16
+    image_mask_ratio: float = 0.75
+    text_mask_ratio: float = 0.75
+    batch_size: int = 12          # seed nodes per step
+    sample_size: int = 4          # sampled incident edges per seed
+    neg_ent: int = 10
+    margin: float = 3.0
+    regul_rate: float = 0.5
+    regul_in_loss: bool = False
+    image_loss_weight: float = 0.7
+    text_loss_weight: float = 0.5
+    gcn_loss_weight: float = 0.7
+    contrastive_loss_weight: float = 0.5
+    image_all_token_loss: bool = False
+    text_all_token_loss: bool = False
+    lr_maximum: float = 1e-4
+    lr_minimum: float = 0.0
+    lr_warmup_epochs: int = 5
+    # enters the warm-restart period like the reference (main.py:107:
+    # T_0 = lr_warmup_epochs * steps_per_epoch // accumulate_grad_steps)
+    accumulate_grad_steps: int = 1
+    epochs: int = 200
     seed: int = 192
+    text_only: bool = False
     attention_impl: str = "auto"     # auto | kernel | torch
 
 
@@ -53,11 +127,197 @@ class FusionTrainer:
             num_relations=table.n_relations,
             config=unified_config(cfg.model_type, dict(
                 emb_dim=cfg.emb_dim, noise_dim=cfg.noise_dim,
-                patch_size=cfg.patch_size, attention_impl=cfg.attention_impl)))
+                patch_size=cfg.patch_size,
+                image_mask_ratio=cfg.image_mask_ratio,
+                text_mask_ratio=cfg.text_mask_ratio,
+                contrastive=cfg.contrastive_loss_weight > 0 and not cfg.text_only,
+                attention_impl=cfg.attention_impl)))
         self.model = init_weights(model, cfg.seed).to(self.device).eval()
+        self.kg = DeviceKG.from_table(table, self.device)
+
+        edge_index, edge_type = edges_from_tasks(table.triples)
+        self.sampler = NeighborSampler(edge_index, edge_type, table.n_entities,
+                                       size=cfg.sample_size, batch_size=cfg.batch_size,
+                                       seed=cfg.seed)
+        self.steps_per_epoch = len(self.sampler)
+        self.schedule = cosine_warm_restarts(
+            cfg.lr_maximum, cfg.lr_minimum,
+            t0=max(cfg.lr_warmup_epochs * self.steps_per_epoch
+                   // max(cfg.accumulate_grad_steps, 1), 1),
+            total_steps=cfg.epochs * self.steps_per_epoch + 1)
+        # optax.adam's defaults; the rate is set from the schedule each step
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.schedule(0),
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.steps = 0
+        self._gen = torch.Generator().manual_seed(cfg.seed)
 
     def _put(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # -- training ------------------------------------------------------------
+
+    def prepare_device_batch(self, graph_batch: dict) -> dict:
+        """The device batch of a sampled subgraph: training images (decoded,
+        cropped, flipped) as patches, pre-tokenized text and descriptions."""
+        n_id = graph_batch["n_id"]
+        mm = self.store.generate_batch(n_id, graph_batch["edge_type"], train=True)
+        batch = {k: self._put(graph_batch[k]) for k in
+                 ("n_id", "node_mask", "edge_index", "edge_type", "edge_mask")}
+        for k in ("text", "text_padding_mask", "rel_des", "rel_des_padding_mask"):
+            batch[k] = self._put(mm[k])
+        if "image" in mm:
+            batch["image_patches"] = self._put(extract_patches(mm["image"], self.cfg.patch_size))
+        return batch
+
+    def draw(self, batch: dict) -> dict:
+        """The step's random parts from the trainer's generator: the image
+        and text masking permutations, then the negatives."""
+        gen = self._gen
+        draws = {}
+        if "image_patches" in batch:
+            draws["image_ids_shuffle"] = torch.randperm(batch["image_patches"].shape[1],
+                                                        generator=gen)
+        draws["text_ids_shuffle"] = torch.randperm(batch["text"].shape[1], generator=gen)
+        edge_index = batch["edge_index"]
+        draws["neg_h"], draws["neg_t"], draws["neg_failed"] = sampling.corrupt_within_nodes(
+            self.kg, batch["n_id"], edge_index[0], batch["edge_type"], edge_index[1],
+            self.cfg.neg_ent, generator=gen)
+        return draws
+
+    def loss(self, batch: dict, draws: dict):
+        """(total loss, info) of one step: every term of the JAX
+        ``loss_fn`` (fusion.py:173-250). Steps the spectral norms."""
+        cfg = self.cfg
+        keys = ("text", "text_padding_mask", "rel_des", "rel_des_padding_mask", "image_patches")
+        model_batch = {k: batch[k] for k in keys if k in batch}
+        edge_index, edge_mask, node_mask = (batch["edge_index"], batch["edge_mask"],
+                                            batch["node_mask"])
+        x_gcn, rel_emb, out = self.model.forward_train(
+            edge_index, batch["edge_type"], model_batch,
+            draws.get("image_ids_shuffle"), draws["text_ids_shuffle"],
+            edge_mask=edge_mask, update_sn=True, node_mask=node_mask)
+
+        h_l, t_l = edge_index[0].long(), edge_index[1].long()
+        neg_h, neg_t = draws["neg_h"].long(), draws["neg_t"].long()
+
+        def transe(hh, rr, tt):
+            return (hh + rr - tt).abs().sum(dim=-1)
+
+        pos = transe(x_gcn[h_l], rel_emb, x_gcn[t_l])                      # [E]
+        neg = transe(x_gcn[neg_h], rel_emb[:, None, :], x_gcn[neg_t])      # [E, n_neg]
+        diff = torch.clamp(pos[:, None] - neg, min=-cfg.margin)
+        w = edge_mask.to(torch.float32)
+        n_pairs = torch.clamp(w.sum() * cfg.neg_ent, min=1.0)
+        gcn_loss = (diff * w[:, None]).sum() / n_pairs + cfg.margin
+
+        nm = node_mask.to(torch.float32)
+
+        def wmean_sq(x, mask_w):
+            return (((x * x).sum(dim=-1) * mask_w).sum()
+                    / torch.clamp(mask_w.sum() * x.shape[-1], min=1.0))
+
+        regul = (wmean_sq(x_gcn[h_l], w) + wmean_sq(x_gcn[t_l], w)
+                 + wmean_sq(rel_emb, w)) / 3
+        struct_loss = gcn_loss + cfg.regul_rate * regul
+
+        image = model_batch.get("image_patches")
+        if image is not None:
+            img_valid = (nm[:, None].expand_as(out["image_mask"])
+                         if cfg.image_all_token_loss else out["image_mask"] * nm[:, None])
+            image_loss = L.patch_mse_loss(out["image_output"], image, img_valid)
+        else:
+            image_loss = torch.zeros((), device=x_gcn.device)
+        text_mask = out["text_mask"]
+        text_valid = L.mask_intersection(
+            torch.ones_like(text_mask) if cfg.text_all_token_loss else text_mask,
+            L.mask_not(model_batch["text_padding_mask"])) * nm[:, None]
+        text_loss, text_acc = L.cross_entropy_loss_and_accuracy(
+            out["text_output"], model_batch["text"], text_valid)
+
+        total = (cfg.image_loss_weight * image_loss
+                 + cfg.text_loss_weight * text_loss
+                 + cfg.gcn_loss_weight * (struct_loss if cfg.regul_in_loss else gcn_loss)
+                 + cfg.contrastive_loss_weight * out["contrastive_loss"])
+        # real edges whose rejection rounds all hit true triples (their
+        # negatives equal the positive): observable, not silent
+        neg_fail_frac = (draws["neg_failed"].to(torch.float32) * w[:, None]).sum() / n_pairs
+        info = dict(loss=total, gcn_loss=gcn_loss, struct_loss=struct_loss,
+                    image_loss=image_loss, text_loss=text_loss,
+                    contrastive_loss=out["contrastive_loss"], text_accuracy=text_acc,
+                    neg_fail_frac=neg_fail_frac)
+        return total, {k: v.detach() for k, v in info.items()}
+
+    def step(self, batch: dict, draws: dict | None = None) -> dict:
+        """One optimizer step on a device batch; returns ``info`` as 0-d
+        tensors on the device (no host sync)."""
+        if draws is None:
+            draws = self.draw(batch)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.steps)
+        self.optimizer.zero_grad(set_to_none=True)
+        total, info = self.loss(batch, draws)
+        total.backward()
+        self.optimizer.step()
+        self.steps += 1
+        return info
+
+    def train_step(self, graph_batch: dict, draws: dict | None = None) -> dict:
+        info = self.step(self.prepare_device_batch(graph_batch), draws)
+        return {k: float(v) for k, v in info.items()}
+
+    def train_epoch(self, prefetch: int = 2, on_step=None) -> dict:
+        """One epoch, batches assembled by a producer thread (image decode
+        and host→device copies overlap the device step); returns the mean
+        of each ``info`` term, or ``{}`` for an epoch with no batch.
+        ``on_step``, if given, gets each step's ``info`` (0-d tensors on the
+        device) as the step is queued."""
+        q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+        stop = object()
+        halt = threading.Event()
+        err: list = []
+
+        def producer():
+            # the stop sentinel goes in even when batch assembly raises, or
+            # the consumer would wait in q.get() forever
+            try:
+                for graph_batch in self.sampler:
+                    if halt.is_set():
+                        break
+                    q.put(self.prepare_device_batch(graph_batch))
+            except BaseException as e:  # re-raised in the training thread
+                err.append(e)
+            finally:
+                q.put(stop)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        agg, n = None, 0
+        try:
+            while True:
+                batch = q.get()
+                if batch is stop:
+                    break
+                info = self.step(batch)
+                if on_step is not None:
+                    on_step(info)
+                # summed on the device: one host sync per epoch, not per step
+                agg = info if agg is None else {k: agg[k] + info[k] for k in agg}
+                n += 1
+        finally:
+            halt.set()                    # a failed step stops the producer early
+            while thread.is_alive():      # unblock a producer waiting on a full queue
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            thread.join()
+        if err:
+            raise err[0]
+        if agg is None:
+            return {}
+        return {k: float(v) / n for k, v in agg.items()}
+
+    # -- serving -------------------------------------------------------------
 
     @staticmethod
     def _padded_ids(i: int, n: int, batch_size: int):

@@ -36,16 +36,18 @@ def _case(B, H, N, hd, dtype, mask_kind, seed):
     return q, k, v, pad
 
 
-@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", ["none", "tail", "all_but_first", "all"])
 @pytest.mark.parametrize("N", [1, 37, 64, 130, 321])
 def test_kernel_matches_plain(hd, dtype, mask_kind, N):
     q, k, v, pad = _case(3, 4, N, hd, dtype, mask_kind, seed=N + hd)
-    before = port.LAUNCHES["attention_fwd"]
+    before = dict(port.LAUNCHES)
     out = port.attention_fwd_cuda(q, k, v, pad, hd ** -0.5)
     torch.cuda.synchronize()
-    assert port.LAUNCHES["attention_fwd"] == before + 1
+    # one launch, counted under the TPU kernel body this head_dim stands for
+    key = "attention_fwd_packed" if hd < 64 else "attention_fwd"
+    assert port.LAUNCHES == {**before, key: before[key] + 1}
     assert out.dtype == dtype and out.shape == q.shape
     ref = port.attention_reference(q, k, v, pad, hd ** -0.5)
     atol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -55,8 +57,8 @@ def test_kernel_matches_plain(hd, dtype, mask_kind, N):
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v, pad = _case(2, 2, 9, 64, torch.float32, "tail", seed=0)
     with pytest.raises(ValueError, match="head_dim"):
-        port.attention_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                                v[..., :32].contiguous(), pad, 0.1)
+        port.attention_fwd_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                v[..., :48].contiguous(), pad, 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         port.attention_fwd_cuda(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), None, 0.1)
@@ -75,6 +77,22 @@ def test_autograd_forward_launches_kernel_backward_recomputes():
     assert port.LAUNCHES["attention_fwd"] == before + 1
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     (port.attention_reference(*ref_leaves, pad, 0.125) ** 2).sum().backward()
+    for a, b in zip(leaves, ref_leaves):
+        np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_autograd_decoder_head_dim_counts_as_packed():
+    """head_dim 32 (the decoder) launches under its own counter, the
+    counterpart of ``_attention_kernel_packed``; the other stays put."""
+    q, k, v, pad = _case(2, 16, 50, 32, torch.float32, "tail", seed=2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(port.LAUNCHES)
+    out = port.fused_attention(*leaves, pad, 32 ** -0.5)
+    (out ** 2).sum().backward()
+    assert port.LAUNCHES == {**before, "attention_fwd_packed": before["attention_fwd_packed"] + 1}
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (port.attention_reference(*ref_leaves, pad, 32 ** -0.5) ** 2).sum().backward()
     for a, b in zip(leaves, ref_leaves):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
