@@ -5,12 +5,15 @@
 Phases (each raises, and the script exits non-zero, on any failure):
 
 1. card and build — the card's name and power limit (nvidia-smi); every
-   kernel of the path is compiled from csrc/ with nvcc (all sources at once);
+   kernel of the path is compiled from csrc/ with nvcc (all sources at once),
+   and each instantiation's ptxas registers and spills and its count of
+   tensor-core HMMA instructions (cuobjdump) are printed;
 2. kernels vs plain — each kernel's wrapper on the card at the shapes of the
    serving and training paths, held against its plain PyTorch version
    (float32 atol 1e-4, bfloat16 atol 2e-2), with CUDA-event times of the
    kernel, the plain version and the library call beside the bound worked
-   out from shapes. ``attention_fwd`` at head_dim 64 stands for the TPU's
+   out from shapes (float32 held to the TF32 tensor-core peak) and the
+   kernel's share of it. ``attention_fwd`` at head_dim 64 stands for the TPU's
    ``_attention_kernel``, at head_dim 32 (the decoder) for
    ``_attention_kernel_packed``;
 3. serving slice — a synthetic ZSL dataset (2048 entities, 32 relations, 4
@@ -68,9 +71,11 @@ from mre_tpu_torch.zsl.module import ZSLConfig, ZSLModule
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
-# tensor cores, bfloat16 on the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM published peaks (NVIDIA data sheet, dense), the rates each type's
+# bound is held to: float32 at the TF32 tensor-core peak (the kernel computes
+# float32 on the tensor cores, in three TF32 passes; the bound counts the
+# work once), bfloat16 at the bf16 tensor-core peak, bytes at HBM3 bandwidth.
+PEAK_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -164,11 +169,12 @@ def attention_case(name, B, H, N, hd, dtype, mask_kind, gen, timed=False):
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
         rec["bound_ms"] = max(t_ops, t_bytes)
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     log(f"[kernel] {name:<22} {rec['dtype']:<8} B{B} H{H} N{N} hd{hd} mask={mask_kind:<8} "
         f"max|d|={err:.3e} (tol {TOL[dtype]:g})"
         + (f"  kernel {rec['ms']:.3f} ms  plain {rec['plain_ms']:.3f} ms  "
            f"sdpa {rec['library_ms']:.3f} ms  bound {rec['bound_ms']:.3f} ms "
-           f"({rec['bound_by']})" if timed else ""))
+           f"({rec['bound_by']}, share {rec['share_of_bound']:.3f})" if timed else ""))
     if not ok:
         raise AssertionError(f"attention_fwd disagrees with its plain version: {rec}")
     return rec
@@ -481,9 +487,18 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = attention.build()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    ptxas = lib.with_suffix(".ptxas.txt")
-    if ptxas.exists():
-        log(ptxas.read_text().strip())
+    build = attention.build_report(lib)
+    for (hd, dtype), r in sorted(build.items()):
+        log(f"[build] attention_fwd_kernel<{hd}, {dtype}>: {r['registers']} registers, "
+            f"spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
+            f"HMMA {r['hmma'] if r['hmma'] is not None else 'not counted (no cuobjdump)'}")
+    if len(build) != 2 * len(attention.HEAD_DIMS):
+        raise AssertionError(f"ptxas reported {sorted(build)}, expected every head_dim × dtype")
+    spills = [key for key, r in build.items() if key[0] <= 64 and r["spill_stores"]]
+    if spills:
+        raise AssertionError(f"register spills at head_dim <= 64: {spills}")
+    if any(r["hmma"] == 0 for r in build.values()):
+        raise AssertionError(f"an instantiation has no tensor-core instruction: {build}")
 
     recs = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -501,7 +516,8 @@ def main() -> int:
                 "launches_by_path": by_path, "case": case,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+                "bound_by": rec["bound_by"], "share_of_bound": rec["share_of_bound"],
+                "library_ms": rec["library_ms"]}
 
     kernels = {"kernels": [
         entry("attention_fwd", "mre_tpu/ops/pallas/attention.py:81", "entity"),
@@ -510,6 +526,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
+                       build={f"hd{hd}_{dt}": r for (hd, dt), r in build.items()},
                        slice=slice_info, train=train_info, kernels=kernels["kernels"]),
                   f, indent=1)
     log(json.dumps(kernels))

@@ -9,7 +9,9 @@ the softmax.
 * ``attention_reference`` — plain PyTorch, einsums in float32. The CPU path,
   the comparison in ``chip_smoke.py`` and ``attention_impl="torch"`` use it.
 * ``attention_fwd_cuda`` — launches the hand-written sm_90a kernel in
-  ``csrc/attention_fwd.cu``. The kernel is compiled with ``nvcc`` at first
+  ``csrc/attention_fwd.cu`` (a flash-attention forward on the tensor cores:
+  ``mma.sync``, three TF32 passes in float32, ``cp.async`` key/value
+  tiles). The kernel is compiled with ``nvcc`` at first
   use into ``mre_tpu_torch/_build/`` and bound through a plain C interface
   with ``ctypes``. One kernel serves both TPU bodies: head_dim 64 and 80
   stand for ``_attention_kernel`` and count in ``LAUNCHES["attention_fwd"]``;
@@ -27,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -72,8 +75,8 @@ def _nvcc() -> str:
 
 def build(defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/attention_fwd.cu`` for sm_90a (once per source hash
-    and ``defines``, e.g. ``("BLOCK_K_HD32=128",)`` for a tile sweep). The
-    ptxas report goes beside the library."""
+    and ``defines``, e.g. ``("ATTN_BLOCK_K=128", "ATTN_WARPS=8")`` for a
+    tile sweep). The ptxas report goes beside the library."""
     key = _SOURCE.read_bytes() + "\0".join(defines).encode()
     name = f"libattention_fwd-{hashlib.sha256(key).hexdigest()[:12]}"
     lib = BUILD_DIR / f"{name}.so"
@@ -90,6 +93,63 @@ def build(defines: tuple[str, ...] = ()) -> Path:
     os.replace(tmp, lib)
     (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
     return lib
+
+
+_ENTRY = re.compile(r"attention_fwd_kernelILi(\d+)E(f|13__nv_bfloat16)E")
+
+
+def _instantiation(symbol: str):
+    """(head_dim, dtype name) of a mangled kernel symbol, or None."""
+    m = _ENTRY.search(symbol)
+    return None if m is None else (int(m.group(1)), "float32" if m.group(2) == "f" else "bfloat16")
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each kernel instantiation, from the
+    ``-Xptxas -v`` report: ``{(hd, dtype): {"registers", "spill_stores",
+    "spill_loads"}}``."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            cur = _instantiation(line)
+            if cur is not None:
+                out[cur] = {}
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma_counts(sass: str) -> dict:
+    """The number of tensor-core ``HMMA`` instructions in each kernel
+    instantiation of a ``cuobjdump -sass`` listing: ``{(hd, dtype): n}``."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = _instantiation(line)
+            if cur is not None:
+                out[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            out[cur] += 1
+    return out
+
+
+def build_report(lib: Path) -> dict:
+    """ptxas registers and spills of every instantiation in a built library,
+    with its SASS ``HMMA`` count where the toolkit has ``cuobjdump`` (else
+    ``hmma`` is None)."""
+    report = ptxas_report(lib.with_suffix(".ptxas.txt").read_text())
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    hmma = {}
+    if cuobjdump.exists():
+        proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True)
+        hmma = sass_hmma_counts(proc.stdout)
+    for key, rec in report.items():
+        rec["hmma"] = hmma.get(key)
+    return report
 
 
 def bind(path: Path) -> ctypes.CDLL:
@@ -128,6 +188,8 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float, lib=None):
         raise ValueError(f"attention_fwd_cuda: B·H = {B * H} exceeds 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention_fwd_cuda: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):   # 16-byte cp.async copies
+        raise ValueError("attention_fwd_cuda: q, k, v must start 16-byte aligned")
     mask_ptr = None
     if padding_mask is not None:
         if (padding_mask.device != q.device or padding_mask.dtype != torch.float32

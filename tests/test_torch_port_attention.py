@@ -147,3 +147,87 @@ def test_kernel_impl_on_cpu_raises():
         port.attention_fwd_cuda(q, k, v, None, 0.125)
     with pytest.raises(ValueError, match="impl"):
         port.fused_attention(q, k, v, None, 0.125, impl="xla")
+
+
+def _tf32(x):
+    """float32 → TF32 as ``cvt.rna.tf32.f32`` rounds, and as the kernel's
+    ``split_tf32`` makes hi: 10 mantissa bits, to nearest, ties away from
+    zero (on the bit pattern: add half of the 13 dropped bits to the
+    magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """float32 → TF32 toward zero: the kernel's lo = (x − hi) truncated."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b the way the kernel's float32 path runs it on the tensor cores:
+    one TF32 pass, or three (hi·hi + hi·lo + lo·hi, split as split_tf32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_tf32_rounding_is_rna():
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12])
+    assert _tf32(x).tolist() == [1.0, 1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 1.0]
+    assert _tf32_trunc(x).tolist() == [1.0, 1.0, 1 + 2 ** -10, -1.0, 1.0]
+
+
+def test_three_tf32_passes_hold_float32(record_property):
+    """The kernel's numerical choice, held on the CPU: attention with both
+    products in three TF32 passes stays within 1e-5 of the float32
+    reference at an entity-like shape; one pass would not stay inside the
+    kernel's float32 tolerance (1e-4)."""
+    B, H, N, hd = 2, 6, 321, 64
+    q, k, v = (torch.from_numpy(x) for x in _qkv(B, H, N, hd, seed=11))
+    rng = np.random.default_rng(12)
+    pad = np.zeros((B, N), np.float32)
+    for b in range(B):                       # entity text: 5-20 words of 64
+        pad[b, N - 64 + int(rng.integers(5, 21)):] = 1.0
+    pad = torch.from_numpy(pad)
+    scale = hd ** -0.5
+    ref = port.attention_reference(q, k, v, pad, scale)
+
+    def emulated(passes):
+        s = _mm_tf32(q, k.transpose(-1, -2), passes) * scale
+        s = s.masked_fill(pad[:, None, None, :] > 0, -1e7)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return _mm_tf32(p, v, passes) / p.sum(-1, keepdim=True)
+
+    err3 = float((emulated(3) - ref).abs().max())
+    err1 = float((emulated(1) - ref).abs().max())
+    record_property("three_pass_max_abs_err", err3)
+    record_property("one_pass_max_abs_err", err1)
+    assert err3 <= 1e-5
+    assert err1 > 1e-4
+
+
+def test_build_report_parsers():
+    """The ptxas and SASS readers that chip_smoke.py prints per
+    instantiation, on report lines in nvcc's own format."""
+    f32 = "_ZN12_GLOBAL__N_120attention_fwd_kernelILi64EfEEvPKT0_S3_S3_PKfPS1_iif"
+    bf16 = "_ZN12_GLOBAL__N_120attention_fwd_kernelILi32E13__nv_bfloat16EEvPKT0_S4_S4_PKfPS2_iif"
+    ptxas = (f"ptxas info    : Compiling entry function '{f32}' for 'sm_90a'\n"
+             f"ptxas info    : Function properties for {f32}\n"
+             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+             "ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]\n"
+             f"ptxas info    : Compiling entry function '{bf16}' for 'sm_90a'\n"
+             f"ptxas info    : Function properties for {bf16}\n"
+             "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+             "ptxas info    : Used 255 registers, used 1 barriers, 384 bytes cmem[0]\n")
+    assert port.ptxas_report(ptxas) == {
+        (64, "float32"): dict(registers=168, spill_stores=0, spill_loads=0),
+        (32, "bfloat16"): dict(registers=255, spill_stores=4, spill_loads=12)}
+    sass = (f"\t\tFunction : {f32}\n"
+            "        /*0570*/     HMMA.1688.F32.TF32 R24, R36, R40, R24 ;\n"
+            "        /*0580*/     HMMA.1688.F32.TF32 R28, R36, R42, R28 ;\n"
+            "        /*0590*/     FFMA R1, R2, R3, R4 ;\n"
+            f"\t\tFunction : {bf16}\n"
+            "        /*0100*/     HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")
+    assert port.sass_hmma_counts(sass) == {(64, "float32"): 2, (32, "bfloat16"): 1}

@@ -39,7 +39,9 @@ def _case(B, H, N, hd, dtype, mask_kind, seed):
 @pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", ["none", "tail", "all_but_first", "all"])
-@pytest.mark.parametrize("N", [1, 37, 64, 130, 321])
+# N on either side of the 16-row warp tile, the 32-key tile, the 64-row
+# query tile and the serving length 321: ragged last tiles, idle warps
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 37, 63, 64, 65, 127, 129, 130, 320, 321, 322])
 def test_kernel_matches_plain(hd, dtype, mask_kind, N):
     q, k, v, pad = _case(3, 4, N, hd, dtype, mask_kind, seed=N + hd)
     before = dict(port.LAUNCHES)
@@ -52,6 +54,29 @@ def test_kernel_matches_plain(hd, dtype, mask_kind, N):
     ref = port.attention_reference(q, k, v, pad, hd ** -0.5)
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_many_waves(hd, dtype):
+    """B·H = 1024 at N 321: several thousand blocks, many waves per SM."""
+    q, k, v, pad = _case(64, 16, 321, hd, dtype, "tail", seed=hd)
+    out = port.attention_fwd_cuda(q, k, v, pad, hd ** -0.5)
+    torch.cuda.synchronize()
+    ref = port.attention_reference(q, k, v, pad, hd ** -0.5)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+
+
+def test_wrapper_refuses_unaligned_base():
+    """cp.async copies 16 bytes: a q that starts one element into its
+    storage is refused, not copied."""
+    q, k, v, pad = _case(2, 2, 9, 64, torch.float32, "tail", seed=3)
+    shifted = torch.empty(q.numel() + 1, device=q.device)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        port.attention_fwd_cuda(shifted, k, v, pad, 0.1)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
