@@ -38,7 +38,23 @@ Phases (each raises, and the script exits non-zero, on any failure):
    first, gives step times in turns. Then six steps of each path, the
    producer thread included, run under torch.profiler: device busy time,
    idle share, and the share of the plain attention backward;
-5. one JSON line of kernels, the card line, and the result line.
+5. the ZSL round — on the serving fixture after its update_embed, at the
+   ZSLConfig defaults (emb 200, noise 15, test_sample 20, max_neighbor 50;
+   pretraining episodes of 64 queries × 8 shots × 10 sub-epochs; GAN
+   batches of 256 rows × 2 relations, so every D and G step re-encodes 512
+   descriptions of 321 tokens through the text transformer):
+   pretrain_extractor → compute_centroids → train_gan → evaluate on the
+   rel_shared, head_shared and factored paths, on a kernel-path ZSL module
+   and on a same-seed one over the plain-attention trainer. train_gan must
+   launch exactly (D_epoch + G_epoch) × depth hd-64 kernels per epoch,
+   pretraining and the centroids none, each evaluation depth × n_unseen,
+   the plain run none; the first epoch's D and G terms agree to rtol 1e-4,
+   every history term is finite, and the MRRs agree to 1e-3 across the two
+   runs and the three paths. A second round of each, plain first, gives
+   ms per pretrain step and per GAN epoch in turns; three GAN epochs run
+   under torch.profiler (device busy time, idle share, the attention, float32
+   GEMM and ``generate`` shares);
+6. one JSON line of kernels, the card line, and the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -50,6 +66,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -62,11 +79,11 @@ import torch.nn.functional as F
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.data.fixtures import write_zsl_dataset
 from mre_tpu_torch.data.kg import TripleTable
-from mre_tpu_torch.data.loaders import load_zsl_dataset
+from mre_tpu_torch.data.loaders import load_candidates, load_zsl_dataset
 from mre_tpu_torch.data.multimodal import MultimodalPipelineConfig, MultimodalStore
 from mre_tpu_torch.ops import attention
 from mre_tpu_torch.train.fusion import INFO_KEYS, FusionConfig, FusionTrainer
-from mre_tpu_torch.zsl.module import ZSLConfig, ZSLModule
+from mre_tpu_torch.zsl.module import EVAL_PATHS, ZSLConfig, ZSLModule
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -95,6 +112,17 @@ TRAIN = dict(model_type="small", depth=12, dec_depth=8, image_size=256, patch_si
 FIRST_STEP_RTOL = 1e-4
 EPOCH_RTOL, EPOCH_ATOL = 1e-2, 1e-3
 PROFILE_STEPS = 6
+
+# the ZSL round (phase 5): ZSLConfig defaults; P pretraining steps, T GAN
+# epochs per run, three GAN epochs profiled. The kernel and plain runs
+# share every draw (same seeds), so the first epoch's terms differ only by
+# the attention's summation order (rtol 1e-4); the ranks, on each path and
+# across paths, only by near-tie flips: at least 99% equal, none moved by
+# more than 2 places.
+ZSL_ROUND = dict(pretrain_steps=50, train_times=10, profile_epochs=3)
+FIRST_EPOCH_RTOL = 1e-4
+MRR_ATOL = 1e-3
+RANK_EQUAL_MIN, RANK_MAX_DIFF = 0.99, 2
 
 
 def log(*a):
@@ -188,6 +216,8 @@ def phase_kernels():
         recs.append(attention_case("entity", 512, 6, 321, 64, dtype, "entity", gen, timed=True))
         recs.append(attention_case("relation", 64, 6, 321, 64, dtype, "relation", gen, timed=True))
         recs.append(attention_case("generate", 20, 6, 321, 64, dtype, "relation", gen, timed=True))
+        # the ZSL GAN's generator: 256 rows × 2 relations of descriptions
+        recs.append(attention_case("gan", 512, 6, 321, 64, dtype, "relation", gen, timed=True))
         recs.append(attention_case("no_mask", 64, 6, 321, 64, dtype, "none", gen))
         recs.append(attention_case("huge_hd80", 64, 16, 321, 80, dtype, "entity", gen, timed=True))
         recs.append(attention_case("ragged_n37", 3, 6, 37, 64, dtype, "entity", gen))
@@ -217,15 +247,19 @@ def sync():
 
 
 ATTENTION_BWD = "autograd::engine::evaluate_function: FusedAttentionBackward"
+GEMM = re.compile(r"gemm|gemv|splitKreduce", re.IGNORECASE)    # cuBLAS kernel names
 
 
-def profile_run(fn, tag: str) -> dict:
+def profile_run(fn, tag: str, spans: tuple = ()) -> dict:
     """One kernel-path run of ``fn`` under torch.profiler: wall time, device
     busy time (the sum over device-side events: kernels, copies, sets; CPU
-    ops that only launch them are left out so nothing counts twice), idle
-    share, the attention forward kernels' time, the device time of the
-    attention backward (the plain recompute that autograd runs under the
-    FusedAttentionBackward node), and the top device events by time."""
+    ops that only launch them, and the device rows of ``record_function``
+    spans, are left out so nothing counts twice), idle share, the attention
+    forward kernels' and the cuBLAS GEMMs' time and share, the device time
+    of the attention backward (the plain recompute that autograd runs under
+    the FusedAttentionBackward node), the device time of the kernels
+    launched inside each named ``record_function`` span of ``spans``, and
+    the top device events by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,18 +272,30 @@ def profile_run(fn, tag: str) -> dict:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith("Activity Buffer")]      # profiler's own
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    busy = max(busy_ms, 1e-9)
     bwd_ms = sum(e.device_time_total / 1e3 for e in events if e.key == ATTENTION_BWD)
+    attn_ms = sum(r[1] for r in rows if "attention_fwd" in r[0])
+    gemm_ms = sum(r[1] for r in rows if GEMM.search(r[0]))
+    span_ms = {s: sum(e.device_time_total / 1e3 for e in events
+                      if e.key == s and e.device_type == DeviceType.CPU) for s in spans}
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / wall_ms,
-               attention_ms=sum(r[1] for r in rows if "attention_fwd" in r[0]),
-               attention_bwd_ms=bwd_ms, attention_bwd_share=bwd_ms / max(busy_ms, 1e-9),
+               attention_ms=attn_ms, attention_share=attn_ms / busy,
+               gemm_ms=gemm_ms, gemm_share=gemm_ms / busy,
+               attention_bwd_ms=bwd_ms, attention_bwd_share=bwd_ms / busy,
+               span_ms=span_ms, span_share={s: ms / busy for s, ms in span_ms.items()},
                top=[dict(op=k[:80], ms=ms, count=c) for k, ms, c in rows[:12]])
     log(f"[{tag}] wall {wall_ms:.1f} ms  device busy {busy_ms:.1f} ms  idle share "
-        f"{out['device_idle_share']:.3f}  attention_fwd {out['attention_ms']:.1f} ms  "
-        f"attention backward {bwd_ms:.1f} ms ({out['attention_bwd_share']:.3f} of busy)")
+        f"{out['device_idle_share']:.3f}  attention_fwd {attn_ms:.1f} ms "
+        f"({out['attention_share']:.3f} of busy)  GEMMs {gemm_ms:.1f} ms "
+        f"({out['gemm_share']:.3f})  attention backward {bwd_ms:.1f} ms "
+        f"({out['attention_bwd_share']:.3f})"
+        + "".join(f"  inside {s} {ms:.1f} ms ({out['span_share'][s]:.3f})"
+                  for s, ms in span_ms.items()))
     for r in out["top"]:
         log(f"[{tag}]   {r['ms']:10.2f} ms  x{r['count']:<5} {r['op']}")
     return out
@@ -261,6 +307,9 @@ def reset_launches():
 
 
 def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
+    """The serving round on a kernel-path and a same-seed plain trainer.
+    Returns (info, served): ``served`` holds the fixture, both trainers and
+    the kernel run's embeddings, for phase 5."""
     t = {}
     t0 = time.perf_counter()
     write_zsl_dataset(data_dir, n_ent=cfg["n_ent"], n_rel=cfg["n_rel"],
@@ -299,7 +348,7 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
         times["rel_s"] = time.perf_counter() - t0
         zsl.update_embed(ent, rel)
         t0 = time.perf_counter()
-        res = zsl.evaluate(fusion, verbose=False, return_ranks=True)
+        res = zsl.evaluate(fusion, verbose=False, eval_path="rel_shared", return_ranks=True)
         sync()
         times["eval_s"] = time.perf_counter() - t0
         return ent, rel, res, times
@@ -346,11 +395,14 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
     if d_ent > 1e-3 or d_rel > 1e-3 or d_mrr > 1e-3:
         raise AssertionError(f"kernel path disagrees with the plain path: "
                              f"ent {d_ent} rel {d_rel} mrr {d_mrr}")
-    return dict(times=t, times_plain=times_p, launches=launches, expected=expect,
+    info = dict(times=t, times_plain=times_p, launches=launches, expected=expect,
                 metrics={k: res[k] for k in ("hits10", "hits5", "hits1", "mrr", "n")},
                 mrr_plain=res_p["mrr"], max_abs_ent=d_ent, max_abs_rel=d_rel,
                 rank_agreement=rank_agree,
                 profile=profile_run(lambda: serve(fusion), "profile") if on_card else None)
+    served = dict(data_dir=data_dir, data=data, fusion=fusion, fusion_plain=fusion_plain,
+                  ent=ent, rel=rel)
+    return info, served
 
 
 # -- phase 4: the training step --------------------------------------------------
@@ -475,6 +527,159 @@ def phase_train(data_dir: str, cfg: dict = TRAIN, device=None):
                 first_step_max_rel=first, epoch_max_abs=epoch_err, profile=prof)
 
 
+# -- phase 5: the ZSL round ------------------------------------------------------
+
+
+def phase_zsl(served: dict, cfg: dict = ZSL_ROUND, card: str = "no card") -> dict:
+    """Extractor pretraining, the centroids, the WGAN-GP loop and the three
+    eval paths on the serving fixture, on a kernel-path ZSL module and on a
+    same-seed one over the plain-attention trainer; launch counts, the two
+    runs' agreement and the MRRs are checked, the loop is timed in turns
+    and profiled."""
+    fusion, fusion_plain = served["fusion"], served["fusion_plain"]
+    data, data_dir = served["data"], served["data_dir"]
+    zcfg = ZSLConfig(**cfg.get("zsl", {}))
+    P, T = cfg["pretrain_steps"], cfg["train_times"]
+    depth = fusion.model.M3AEmodel.cfg.depth
+    on_card = fusion.device.type == "cuda"
+    n_unseen = len(load_candidates(data_dir, "test"))
+    none = {k: 0 for k in attention.LAUNCHES}
+    gan_expect = dict(none, attention_fwd=on_card * T * (zcfg.D_epoch + zcfg.G_epoch) * depth)
+    eval_expect = dict(none, attention_fwd=on_card * depth * n_unseen)
+
+    def module():
+        z = ZSLModule(data_dir, data["r2id"], data["e2id"], zcfg, device=fusion.device)
+        z.update_embed(served["ent"], served["rel"])
+        return z
+
+    def timed(fn):
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3, dict(attention.LAUNCHES)
+
+    def train(z, fus):
+        r = {}
+        _, ms, r["launches_pretrain"] = timed(lambda: z.pretrain_extractor(steps=P, log_every=P))
+        r["pretrain_step_ms"] = ms / P
+        _, r["centroids_ms"], r["launches_centroids"] = timed(z.compute_centroids)
+        # the D/G loop alone, on the centroids just computed
+        (r["d_hist"], r["g_hist"]), ms, r["launches_gan"] = timed(
+            lambda: z.train_gan(fus, train_times=T, log_every=T, skip_pretrain=True,
+                                skip_centroids=True))
+        r["gan_epoch_ms"] = ms / T
+        return r
+
+    def evaluate(z, fus):
+        out = {}
+        for path in EVAL_PATHS:
+            res, ms, launches = timed(lambda: z.evaluate(fus, verbose=False, eval_path=path,
+                                                         return_ranks=True))
+            out[path] = dict(mrr=res["mrr"], n=res["n"], ms=ms, launches=launches,
+                             ranks=res["ranks"])
+        return out
+
+    def check_launches(r, ev, gan, evl, what):
+        got = dict(pretrain=r["launches_pretrain"], centroids=r["launches_centroids"],
+                   train_gan=r["launches_gan"], **{p: e["launches"] for p, e in ev.items()})
+        want = dict(pretrain=none, centroids=none, train_gan=gan, **{p: evl for p in ev})
+        log(f"[zsl] {what} launches {got}")
+        if got != want:
+            raise AssertionError(f"{what}: attention launches {got}, expected {want}")
+
+    zk, zp = module(), module()
+    run_k = train(zk, fusion)
+    ev_k = evaluate(zk, fusion)
+    check_launches(run_k, ev_k, gan_expect, eval_expect, "kernel run")
+    run_p = train(zp, fusion_plain)
+    ev_p = evaluate(zp, fusion_plain)
+    check_launches(run_p, ev_p, none, none, "plain run")
+
+    bad = [(i, k) for h in ("d_hist", "g_hist") for r in (run_k, run_p)
+           for i, step in enumerate(r[h]) for k, v in step.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite GAN history terms (epoch, term): {bad[:8]}")
+    first = {h: max(abs(run_k[h][0][k] - run_p[h][0][k]) / max(abs(run_p[h][0][k]), 1e-12)
+                    for k in run_p[h][0]) for h in ("d_hist", "g_hist")}
+    for h in ("d_hist", "g_hist"):
+        log(f"[zsl] first epoch {h[0].upper()}, kernel: "
+            + "  ".join(f"{k} {v:.6f}" for k, v in run_k[h][0].items()))
+        log(f"[zsl] first epoch {h[0].upper()}, plain:  "
+            + "  ".join(f"{k} {v:.6f}" for k, v in run_p[h][0].items()))
+    log(f"[zsl] first epoch kernel vs plain: max rel D {first['d_hist']:.3e}, "
+        f"G {first['g_hist']:.3e} (tol {FIRST_EPOCH_RTOL:g})")
+    if max(first.values()) > FIRST_EPOCH_RTOL:
+        raise AssertionError(f"first GAN epoch disagrees between the paths: {first}")
+    mrr = {p: (ev_k[p]["mrr"], ev_p[p]["mrr"]) for p in EVAL_PATHS}
+    log(f"[zsl] MRR kernel / plain: " + "  ".join(f"{p} {a:.6f} / {b:.6f}"
+                                                   for p, (a, b) in mrr.items()))
+    if any(ev_k[p]["n"] == 0 for p in EVAL_PATHS):
+        raise AssertionError(f"an eval path ranked nothing: {ev_k}")
+    spread = max(a for a, _ in mrr.values()) - min(a for a, _ in mrr.values())
+    d_plain = max(abs(a - b) for a, b in mrr.values())
+    if d_plain > MRR_ATOL or spread > MRR_ATOL:
+        raise AssertionError(f"MRRs disagree: kernel vs plain {d_plain}, across paths {spread}")
+
+    def rank_agreement(a, b):
+        """(share of equal ranks, largest rank difference) of two rank arrays."""
+        if a.shape != b.shape:
+            raise AssertionError(f"rank arrays of shapes {a.shape} and {b.shape}")
+        return float(np.mean(a == b)), int(np.abs(a - b).max())
+
+    # the same queries ranked by the kernel and the plain run on each path,
+    # and by each path against factored within each run
+    agree = {f"{p} kernel vs plain": rank_agreement(ev_k[p]["ranks"], ev_p[p]["ranks"])
+             for p in EVAL_PATHS}
+    agree.update({f"{p} vs factored ({name})": rank_agreement(ev[p]["ranks"],
+                                                              ev["factored"]["ranks"])
+                  for name, ev in (("kernel", ev_k), ("plain", ev_p))
+                  for p in ("rel_shared", "head_shared")})
+    log("[zsl] ranks equal / max |d rank|: "
+        + "  ".join(f"{k} {eq:.4f} / {d}" for k, (eq, d) in agree.items()))
+    off = {k: v for k, v in agree.items() if v[0] < RANK_EQUAL_MIN or v[1] > RANK_MAX_DIFF}
+    if off:
+        raise AssertionError(f"ranks disagree (share equal < {RANK_EQUAL_MIN} or a rank "
+                             f"moved by more than {RANK_MAX_DIFF}): {off}")
+
+    # times in turns (kernel, plain, plain, kernel): a second round of each
+    run_p2 = train(zp, fusion_plain)
+    run_k2 = train(zk, fusion)
+    if run_k2["launches_gan"] != gan_expect or any(run_p2["launches_gan"].values()):
+        raise AssertionError(f"second rounds launched {run_k2['launches_gan']} (kernel) and "
+                             f"{run_p2['launches_gan']} (plain)")
+    times = {name: {"pretrain_step_ms": [r["pretrain_step_ms"] for r in runs],
+                    "gan_epoch_ms": [r["gan_epoch_ms"] for r in runs]}
+             for name, runs in (("kernel", (run_k, run_k2)), ("plain", (run_p, run_p2)))}
+    for name, tm in times.items():
+        log(f"[zsl] {name}: ms per pretrain step {tm['pretrain_step_ms'][0]:.2f} / "
+            f"{tm['pretrain_step_ms'][1]:.2f}, ms per GAN epoch {tm['gan_epoch_ms'][0]:.1f} / "
+            f"{tm['gan_epoch_ms'][1]:.1f} (first / second round; {card})")
+
+    prof = None
+    if on_card:
+        E = cfg["profile_epochs"]
+        prof = dict(profile_run(lambda: zk.train_gan(fusion, train_times=E, log_every=E,
+                                                     skip_pretrain=True, skip_centroids=True),
+                                "zsl-profile", spans=("zsl.generate",)), epochs=E)
+        log(f"[zsl-profile] {E} GAN epochs: device busy {prof['device_busy_ms']:.1f} ms, "
+            f"idle share {prof['device_idle_share']:.3f}, attention "
+            f"{prof['attention_share']:.3f}, float32 GEMMs {prof['gemm_share']:.3f}, "
+            f"inside generate {prof['span_share']['zsl.generate']:.3f} of busy ({card})")
+    strip = ("d_hist", "g_hist")
+    return dict(launches=run_k["launches_gan"], expected_gan=gan_expect,
+                expected_eval=eval_expect, times=times,
+                centroids_ms=[run_k["centroids_ms"], run_p["centroids_ms"]],
+                first_epoch={"kernel": {h: run_k[h][0] for h in strip},
+                             "plain": {h: run_p[h][0] for h in strip}},
+                first_epoch_max_rel=first,
+                last_epoch={h: run_k[h][-1] for h in strip},
+                mrr=mrr, rank_agreement=agree,
+                eval_ms={p: (ev_k[p]["ms"], ev_p[p]["ms"]) for p in EVAL_PATHS},
+                profile=prof, card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -502,15 +707,17 @@ def main() -> int:
 
     recs = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        slice_info = phase_slice(os.path.join(tmp, "serve"))
+        slice_info, served = phase_slice(os.path.join(tmp, "serve"))
         train_info = phase_train(os.path.join(tmp, "train"))
+        zsl_info = phase_zsl(served, card=card)
 
     def entry(name, replaces, case):
         """One kernel's line: its times at ``case`` (float32), its launches
         on each path of this run."""
         rec = next(r for r in recs if r["case"] == case and r["dtype"] == "float32")
         by_path = {"serving": slice_info["launches"][name],
-                   "training": train_info["launches"][name]}
+                   "training": train_info["launches"][name],
+                   "zsl_training": zsl_info["launches"][name]}
         return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "case": case,
@@ -527,7 +734,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
                        build={f"hd{hd}_{dt}": r for (hd, dt), r in build.items()},
-                       slice=slice_info, train=train_info, kernels=kernels["kernels"]),
+                       slice=slice_info, train=train_info, zsl=zsl_info,
+                       kernels=kernels["kernels"]),
                   f, indent=1)
     log(json.dumps(kernels))
     log(card)

@@ -3,10 +3,14 @@
 The package keeps the JAX package's layout (``core/``, ``ops/``,
 ``models/``, ``data/``, ``eval/``, ``zsl/``, ``train/``) so that every
 module's counterpart is found under the same name. It imports torch and
-numpy only. This slice ports the zero-shot serving path:
+numpy only. Ported so far:
 
-    FusionTrainer.generate_ent_embeddings / generate_rel_embeddings
-    → ZSLModule.update_embed → ZSLModule.evaluate(eval_path="rel_shared")
+* zero-shot serving: FusionTrainer.generate_ent_embeddings /
+  generate_rel_embeddings → ZSLModule.update_embed → ZSLModule.evaluate
+  (``rel_shared``, ``head_shared`` or ``factored``);
+* fusion training: FusionTrainer.train_step / train_epoch;
+* ZSL training: ZSLModule.pretrain_extractor → compute_centroids →
+  train_gan (WGAN-GP on the fusion model's generator head).
 
 Attention on CUDA tensors runs a hand-written sm_90a kernel
 (``csrc/attention_fwd.cu``, bound in ``ops/attention.py``).

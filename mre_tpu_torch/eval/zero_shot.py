@@ -1,14 +1,20 @@
-"""Zero-shot relation evaluation, relation-shared path (port of mre_tpu/eval/zero_shot.py).
+"""Zero-shot relation evaluation (port of mre_tpu/eval/zero_shot.py).
 
-Every query of an unseen relation ranks the same shared candidate list
-(reference utils/gen_mode_candidates.py), so each chunk of queries carries
-its relation's shared row: the candidate gather and the SupportEncoder's
-first matmul are computed once per chunk. The host builds the padded query
-stream; the device ranks it chunk by chunk (the JAX ``lax.scan`` becomes a
-Python loop).
+The host builds one padded query stream over every unseen relation; the
+device ranks it chunk by chunk (the JAX ``lax.scan`` becomes a Python
+loop). Scores are the cosine of each pair embedding against the mean of
+the relation's unit-normalized generated vectors.
 
-Ranks are pessimistic, 1 + #greater + #tied, and a duplicate candidate
-counts once per occurrence (zero_shot.py:207-223, 280-286).
+* ``evaluate_zero_shot`` — one candidate list per query, embedded pair by
+  pair (``factored``) or one head per query (``head_shared``);
+* ``evaluate_zero_shot_rel_shared`` — every query of a relation ranks the
+  same shared candidate list (reference utils/gen_mode_candidates.py), so
+  each chunk carries its relation's shared row and the candidate gather and
+  the SupportEncoder's first matmul are computed once per chunk.
+
+Ranks are pessimistic, 1 + #greater + #tied; in the shared-list path a
+duplicate candidate counts once per occurrence (zero_shot.py:28-47,
+207-223, 280-286). An empty candidate file gives zeros with n = 0.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from mre_tpu_torch.core.device import resolve_device
 
 
 def metrics_from_ranks(ranks: np.ndarray) -> dict:
@@ -32,6 +40,78 @@ def metrics_from_ranks(ranks: np.ndarray) -> dict:
 
 def _unit(x):
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-12)
+
+
+def _empty_result(return_ranks: bool) -> dict:
+    """Zero evaluable queries (an empty or mis-pathed candidates file):
+    zeros with n = 0, so a misloaded dataset never reads as a perfect score."""
+    overall = dict(hits10=0.0, hits5=0.0, hits1=0.0, mrr=0.0, n=0)
+    overall["per_relation"] = {}
+    if return_ranks:
+        overall["ranks"] = np.zeros(0, np.int64)
+    return overall
+
+
+def _print_metrics(name: str, m: dict):
+    print(f"{name} Hits10:{m['hits10']:.3f}, Hits5:{m['hits5']:.3f}, "
+          f"Hits1:{m['hits1']:.3f} MRR:{m['mrr']:.3f}")
+
+
+def _overall(ranks: np.ndarray, per_relation: dict, return_ranks: bool,
+             verbose: bool) -> dict:
+    overall = metrics_from_ranks(ranks)
+    if return_ranks:
+        overall["ranks"] = np.asarray(ranks, np.int64)
+    if verbose:
+        print(f"OVERALL HITS10: {overall['hits10']:.3f}  HITS5: {overall['hits5']:.3f}  "
+              f"HITS1: {overall['hits1']:.3f}  MRR: {overall['mrr']:.3f}")
+    overall["per_relation"] = per_relation
+    return overall
+
+
+def _ranks_vs_first(scores, mask):
+    """1 + #(valid candidates scoring >= column 0, the true tail)."""
+    valid = mask.clone()
+    valid[:, 0] = False
+    return ((scores >= scores[:, :1]) & valid).sum(1) + 1
+
+
+@torch.no_grad()
+def _score_and_rank(cand_emb, rel_vecs, cand_mask):
+    """cand_emb [Q, C, D]; rel_vecs [S, D]; cand_mask [Q, C] bool (column 0
+    = the true tail). Returns ranks [Q] (zero_shot.py:28-47): the mean of
+    cosines folded into one mean relation vector."""
+    vbar = _unit(rel_vecs).mean(0)
+    scores = torch.einsum("qcd,d->qc", _unit(cand_emb), vbar)
+    return _ranks_vs_first(scores, cand_mask)
+
+
+@torch.no_grad()
+def _rank_stream(embed_query_pairs: Callable, pairs, left, right, mask, vbar) -> np.ndarray:
+    """pairs [nc, chunk, C, 2]; left/right [nc, chunk, C]; mask [nc, chunk,
+    C] bool; vbar [nc, chunk, D]. ``embed_query_pairs(pairs [N, 2], left
+    [N], right [N]) → [N, D]``. Returns ranks [nc·chunk] (host)."""
+    nc, chunk, c_max = right.shape
+    ranks = []
+    for c in range(nc):
+        emb = embed_query_pairs(pairs[c].reshape(-1, 2), left[c].reshape(-1),
+                                right[c].reshape(-1)).float().reshape(chunk, c_max, -1)
+        scores = torch.einsum("qcd,qd->qc", _unit(emb), vbar[c])
+        ranks.append(_ranks_vs_first(scores, mask[c]))
+    return torch.cat(ranks).cpu().numpy()
+
+
+@torch.no_grad()
+def _rank_stream_block(embed_query_block: Callable, heads, right, mask, vbar) -> np.ndarray:
+    """Block variant of ``_rank_stream``, one head entity per query: heads
+    [nc, chunk]; ``embed_query_block(heads [chunk], cands [chunk, C]) →
+    [chunk, C, D]`` (``Extractor.embed_pairs_head_shared``)."""
+    ranks = []
+    for c in range(heads.shape[0]):
+        emb = embed_query_block(heads[c], right[c]).float()
+        scores = torch.einsum("qcd,qd->qc", _unit(emb), vbar[c])
+        ranks.append(_ranks_vs_first(scores, mask[c]))
+    return torch.cat(ranks).cpu().numpy()
 
 
 @torch.no_grad()
@@ -58,12 +138,14 @@ def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
                                   generate_relation_vecs: Callable,
                                   query_chunk: int = 64, verbose: bool = True,
                                   return_ranks: bool = False,
-                                  device: torch.device | str = "cpu") -> dict:
+                                  device: torch.device | str | None = None) -> dict:
     """Zero-shot ranking via the relation-shared path.
 
     ``embed_rel_block(heads [Q], shared [C]) → [Q, C, D]``,
     ``embed_true(heads [Q], trues [Q]) → [Q, D]``,
-    ``generate_relation_vecs(rel_name) → [S, D]``."""
+    ``generate_relation_vecs(rel_name) → [S, D]``. Ranks on ``device``
+    (default ``cuda``)."""
+    device = resolve_device(device)
     rel_order = list(test_candidates.keys())
     shared_idx: dict = {}
     c_max = 1
@@ -109,11 +191,7 @@ def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
         shared_rows += [row] * ((len(queries) + pad) // query_chunk)
 
     if sum(counts) == 0:
-        overall = dict(hits10=0.0, hits5=0.0, hits1=0.0, mrr=0.0, n=0)
-        overall["per_relation"] = {}
-        if return_ranks:
-            overall["ranks"] = np.zeros(0, np.int64)
-        return overall
+        return _empty_result(return_ranks)
 
     nc = len(shared_rows)
 
@@ -137,15 +215,98 @@ def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
         per_relation[rel] = metrics_from_ranks(r)
         off += cnt + pad
         if verbose:
-            m = per_relation[rel]
-            print(f"{rel} Hits10:{m['hits10']:.3f}, Hits5:{m['hits5']:.3f}, "
-                  f"Hits1:{m['hits1']:.3f} MRR:{m['mrr']:.3f}")
-    real_ranks = np.concatenate(real_ranks)
-    overall = metrics_from_ranks(real_ranks)
-    if return_ranks:
-        overall["ranks"] = np.asarray(real_ranks, np.int64)
-    if verbose:
-        print(f"OVERALL HITS10: {overall['hits10']:.3f}  HITS5: {overall['hits5']:.3f}  "
-              f"HITS1: {overall['hits1']:.3f}  MRR: {overall['mrr']:.3f}")
-    overall["per_relation"] = per_relation
-    return overall
+            _print_metrics(rel, per_relation[rel])
+    return _overall(np.concatenate(real_ranks), per_relation, return_ranks, verbose)
+
+
+def evaluate_zero_shot(test_candidates: dict, symbol2id: dict, e2id: dict,
+                       rel2id: dict, embed_query_pairs: Callable,
+                       generate_relation_vecs: Callable,
+                       query_chunk: int = 64, verbose: bool = True,
+                       embed_query_block: Callable | None = None,
+                       return_ranks: bool = False,
+                       device: torch.device | str | None = None) -> dict:
+    """Zero-shot ranking over every unseen relation (zero_shot.py:354-470).
+
+    ``embed_query_pairs(pairs [N, 2] symbol ids, left [N], right [N]) →
+    [N, D]``; with ``embed_query_block(heads [Q], cands [Q, C]) → [Q, C,
+    D]`` given, it is used instead (one head per query);
+    ``generate_relation_vecs(rel_name) → [S, D]``. Ranks on ``device``
+    (default ``cuda``)."""
+    device = resolve_device(device)
+    rel_order = list(test_candidates.keys())
+    c_max = 1
+    for rel in rel_order:
+        for cands in test_candidates[rel].values():
+            c_max = max(c_max, len(cands))
+
+    block = embed_query_block is not None
+    counts = []
+    pairs_l, left_l, right_l, mask_l, vbar_l = [], [], [], [], []
+    for rel in rel_order:
+        queries = test_candidates[rel]
+        rv = np.asarray(generate_relation_vecs(rel), np.float32)
+        rv = rv / np.maximum(np.linalg.norm(rv, axis=-1, keepdims=True), 1e-12)
+        vbar = rv.mean(0)
+        counts.append(len(queries))
+        for key, cands in queries.items():
+            head, _, _ = key.split("\t")
+            n = len(cands)
+            r = np.zeros(c_max, np.int32)
+            m = np.zeros(c_max, bool)
+            r[:n] = [e2id[c] for c in cands]
+            m[:n] = True
+            if block:
+                left_l.append(e2id[head])
+            else:
+                p = np.zeros((c_max, 2), np.int32)
+                l = np.zeros(c_max, np.int32)
+                p[:n, 0] = symbol2id[head]
+                p[:n, 1] = [symbol2id[c] for c in cands]
+                l[:n] = e2id[head]
+                pairs_l.append(p)
+                left_l.append(l)
+            right_l.append(r)
+            mask_l.append(m)
+            vbar_l.append(vbar)
+
+    n_q = len(right_l)
+    if n_q == 0:
+        return _empty_result(return_ranks)
+    pad_q = -(-n_q // query_chunk) * query_chunk
+    D = vbar_l[0].shape[0]
+    for _ in range(pad_q - n_q):
+        if block:
+            left_l.append(0)
+        else:
+            pairs_l.append(np.zeros((c_max, 2), np.int32))
+            left_l.append(np.zeros(c_max, np.int32))
+        right_l.append(np.zeros(c_max, np.int32))
+        mask_l.append(np.zeros(c_max, bool))
+        vbar_l.append(np.zeros(D, np.float32))
+
+    nc = pad_q // query_chunk
+
+    def put(a, dtype, *shape):
+        return torch.as_tensor(np.asarray(a).reshape(nc, query_chunk, *shape),
+                               dtype=dtype, device=device)
+
+    right = put(np.stack(right_l), torch.int64, c_max)
+    mask = put(np.stack(mask_l), torch.bool, c_max)
+    vbar = put(np.stack(vbar_l), torch.float32, D)
+    if block:
+        ranks = _rank_stream_block(embed_query_block, put(left_l, torch.int64),
+                                   right, mask, vbar)[:n_q]
+    else:
+        ranks = _rank_stream(embed_query_pairs, put(np.stack(pairs_l), torch.int64, c_max, 2),
+                             put(np.stack(left_l), torch.int64, c_max),
+                             right, mask, vbar)[:n_q]
+
+    per_relation = {}
+    off = 0
+    for rel, cnt in zip(rel_order, counts):
+        per_relation[rel] = metrics_from_ranks(ranks[off:off + cnt])
+        off += cnt
+        if verbose:
+            _print_metrics(rel, per_relation[rel])
+    return _overall(ranks, per_relation, return_ranks, verbose)

@@ -160,16 +160,56 @@ class MLP(nn.Module):
         return getattr(self, f"Dense_{self.depth}")(x)
 
 
-class SupportEncoder(nn.Module):
-    """Residual 2-layer FFN with LN (module/submodule.py:240-258); eval form
-    (dropout is an identity)."""
+class DropoutMasks:
+    """The keep masks of a sequence of flax ``nn.Dropout`` calls, handed out
+    in call order. Each mask is drawn from ``generator`` (keep where
+    U[0, 1) < 1 − rate, as ``jax.random.bernoulli``) or, when ``masks`` is
+    given, taken from it (boolean arrays, True = keep; e.g. the JAX step's
+    own masks in the tests). Kept values are scaled by 1 / (1 − rate), as
+    flax does."""
 
-    def __init__(self, d_model: int, d_inner: int):
+    def __init__(self, generator: torch.Generator | None = None, masks=None):
+        if (generator is None) == (masks is None):
+            raise ValueError("DropoutMasks needs exactly one of generator, masks")
+        self.generator = generator
+        self._given = None if masks is None else list(masks)
+        self.used = 0
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        keep = 1.0 - rate
+        if self._given is not None:
+            if self.used == len(self._given):
+                raise ValueError(f"DropoutMasks: only {len(self._given)} masks given")
+            mask = torch.as_tensor(self._given[self.used], dtype=torch.bool, device=x.device)
+            if tuple(mask.shape) != tuple(x.shape):
+                raise ValueError(f"DropoutMasks: mask {self.used} has shape "
+                                 f"{tuple(mask.shape)}, the input {tuple(x.shape)}")
+        else:
+            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        self.used += 1
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def check_all_used(self):
+        """Given masks must be used up by the step they were given for."""
+        if self._given is not None and self.used != len(self._given):
+            raise ValueError(f"DropoutMasks: {len(self._given)} masks given, "
+                             f"{self.used} used")
+
+
+class SupportEncoder(nn.Module):
+    """Residual 2-layer FFN with LN (module/submodule.py:240-258), with
+    Dropout(``dropout``) on ``proj2``'s output when not ``deterministic``
+    (transformer.py:217-232); its mask comes from ``drop``."""
+
+    def __init__(self, d_model: int, d_inner: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.proj1 = Dense(d_model, d_inner, kernel_init="xavier_normal")
         self.proj2 = Dense(d_inner, d_model, kernel_init="xavier_normal")
         self.LayerNorm_0 = layer_norm(d_model)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, drop: DropoutMasks | None = None):
         out = self.proj2(F.relu(self.proj1(x)))
+        if not deterministic:
+            out = drop(out, self.dropout)
         return self.LayerNorm_0(out + x)

@@ -104,10 +104,15 @@ class UnifiedModel(nn.Module):
 
     # -- conditional relation generator -------------------------------------
 
-    def generate(self, description_tokens, des_padding_mask, noise):
+    def generate(self, description_tokens, des_padding_mask, noise,
+                 update_sn: bool = False):
+        """Generator head (unified.py:118-128). The text pass builds no
+        graph; ``update_sn`` steps the power iteration of the three SN
+        layers (the ZSL G step)."""
         rel_emb = self._text_cls(description_tokens, des_padding_mask)
-        x = self.generate_fc_layer(torch.cat([noise, rel_emb], dim=1))
-        x = self.des_rel_map_layer2(self.des_rel_map_layer1(x))
+        x = self.generate_fc_layer(torch.cat([noise, rel_emb], dim=1), update_stats=update_sn)
+        x = self.des_rel_map_layer1(x, update_stats=update_sn)
+        x = self.des_rel_map_layer2(x, update_stats=update_sn)
         return self.layer_norm(x)
 
     # -- evaluation forward (JAX __call__ with is_evaluate=True) -------------

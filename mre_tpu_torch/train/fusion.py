@@ -354,10 +354,13 @@ class FusionTrainer:
                 self._put(self.store.rel_mask[ids_p]))[:len(ids)])
         return torch.cat(out)
 
-    @torch.no_grad()
-    def generate(self, rel_ids: np.ndarray, noise: torch.Tensor) -> torch.Tensor:
-        """Generator head: relation descriptions ⊕ noise → embeddings."""
+    def generate(self, rel_ids: np.ndarray, noise: torch.Tensor,
+                 update_sn: bool = False) -> torch.Tensor:
+        """Generator head: relation descriptions ⊕ noise → embeddings. The
+        head builds a graph unless the caller is under ``no_grad`` (the ZSL
+        G step trains it); ``update_sn`` steps its three SN layers."""
         rel_ids = np.asarray(rel_ids)
-        return self.model.generate(self._put(self.store.rel_ids[rel_ids]),
-                                   self._put(self.store.rel_mask[rel_ids]),
-                                   noise.to(self.device))
+        with torch.profiler.record_function("zsl.generate"):
+            return self.model.generate(self._put(self.store.rel_ids[rel_ids]),
+                                       self._put(self.store.rel_mask[rel_ids]),
+                                       noise.to(self.device), update_sn=update_sn)

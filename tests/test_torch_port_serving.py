@@ -101,7 +101,8 @@ def test_generated_relation_vectors_match(slice_pair):
     jf, jz, tf, tz = slice_pair
     rel_ids = np.full(jz.cfg.test_sample, 6)
     ref = np.asarray(jz._generate(jf, jf.params, rel_ids, jz.test_noises))
-    out = tf.generate(rel_ids, tz.test_noises).numpy()
+    with torch.no_grad():
+        out = tf.generate(rel_ids, tz.test_noises).numpy()
     np.testing.assert_allclose(out, ref, **TOL)
 
 
@@ -123,9 +124,20 @@ def test_rel_shared_ranks_equal(slice_pair, embeddings):
 
 
 def test_other_eval_paths_are_refused(slice_pair):
+    """An eval_path outside rel_shared / head_shared / factored raises (JAX
+    would quietly rank it as factored)."""
     _, _, tf, tz = slice_pair
     with pytest.raises(ValueError, match="rel_shared"):
-        tz.evaluate(tf, eval_path="head_shared")
+        tz.evaluate(tf, eval_path="pairwise")
+
+
+@pytest.mark.parametrize("option", [dict(mesh=object()),
+                                    dict(predict_unseen=lambda ids: None),
+                                    dict(compute_dtype="bfloat16")])
+def test_unported_evaluate_options_are_refused(slice_pair, option):
+    _, _, tf, tz = slice_pair
+    with pytest.raises(NotImplementedError, match="not ported|float32 only"):
+        tz.evaluate(tf, verbose=False, **option)
 
 
 def test_entry_points_need_a_card_unless_told(slice_pair, monkeypatch):
