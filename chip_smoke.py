@@ -54,7 +54,24 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ms per pretrain step and per GAN epoch in turns; three GAN epochs run
    under torch.profiler (device busy time, idle share, the attention, float32
    GEMM and ``generate`` shares);
-6. one JSON line of kernels, the card line, and the result line.
+6. the CLI — ``python -m mre_tpu_torch.cli.main`` at the full width of
+   M3AE-small with every width flag at its default, on a fixture of the
+   training phase's size (candidate lists long enough for the GAN batcher),
+   in a temporary working directory; the only reductions are 20 Extractor
+   pretraining steps and 5 GAN epochs. Train mode in-process (``main``, two
+   epochs, checkpoint and ZSL round at epoch 2, the first epoch under
+   ``--profile_dir``): exact launch counts (2 epochs of steps, the entity and
+   relation sweeps, 5 GAN epochs, one rel_shared evaluation), the JAX
+   package's file set, finite ``loss`` and ``zsl_mrr`` in the metrics JSONL,
+   ``attention_fwd_kernel`` in the trace. ``--resume --epochs 1
+   --start_epoch 2``: the parameters right after ``build_pipeline`` equal
+   the epoch-2 checkpoint bit for bit. Evaluate mode from the final
+   checkpoint as a subprocess: exit 0, ``[Final ZSL Scores]``, and its
+   dumped entity embeddings within rtol 1e-4 (of the largest magnitude) of a
+   same-checkpoint trainer's on the plain attention. Wall time per stage:
+   ms per step, checkpoint save / load seconds and bytes, ZSL-round and
+   evaluate-entry seconds;
+7. one JSON line of kernels, the card line, and the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -62,10 +79,13 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -76,6 +96,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mre_tpu_torch.cli import main as cli
+from mre_tpu_torch.cli.args import read_options
+from mre_tpu_torch.core import checkpoint as ckpt
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.data.fixtures import write_zsl_dataset
 from mre_tpu_torch.data.kg import TripleTable
@@ -123,6 +146,15 @@ ZSL_ROUND = dict(pretrain_steps=50, train_times=10, profile_epochs=3)
 FIRST_EPOCH_RTOL = 1e-4
 MRR_ATOL = 1e-3
 RANK_EQUAL_MIN, RANK_MAX_DIFF = 0.99, 2
+
+
+# the CLI (phase 6): the training fixture's size, every width flag at its
+# default; n_candidates above the GAN batcher's floor of 20
+CLI = dict(n_ent=480, n_rel=32, n_unseen=4, triples_per_rel=60, image_px=64,
+           n_candidates=100, flags=["--model_type", "small", "--pretrain_times", "20",
+                                    "--train_times", "5"])
+CLI_EMB_RTOL = 1e-4
+CLI_NAME = "mre_tpu_small"          # --saved_model_name's default
 
 
 def log(*a):
@@ -680,6 +712,198 @@ def phase_zsl(served: dict, cfg: dict = ZSL_ROUND, card: str = "no card") -> dic
                 profile=prof, card=card)
 
 
+# -- phase 6: the CLI -------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def timed_calls(records: list, what: str, size_of=None):
+    """A wrapper factory: each call appends (what, seconds, bytes) to
+    ``records``; ``size_of(args)`` gives the bytes (a checkpoint's file)."""
+    def wrap(fn):
+        def call(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            records.append(dict(what=what, s=time.perf_counter() - t0,
+                                bytes=size_of(a) if size_of else None))
+            return out
+        return call
+    return wrap
+
+
+def phase_cli(work_dir: str, cfg: dict = CLI, card: str = "no card") -> dict:
+    """The CLI's train mode, resume and evaluate mode (a subprocess) in
+    ``work_dir``; launch counts, files, bitwise resume and the evaluate
+    dump against a plain-attention trainer are checked."""
+    os.makedirs(work_dir, exist_ok=True)
+    old_cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        return _phase_cli(cfg, card)
+    finally:
+        os.chdir(old_cwd)
+
+
+def _phase_cli(cfg: dict, card: str) -> dict:
+    ds = "cli"
+    write_zsl_dataset(os.path.join("data", ds), n_ent=cfg["n_ent"], n_rel=cfg["n_rel"],
+                      n_unseen=cfg["n_unseen"], triples_per_rel=cfg["triples_per_rel"],
+                      n_candidates=cfg["n_candidates"], image_size=cfg["image_px"], seed=1)
+    base = ["--dataset", ds, "--data_root", "data", "--output_dir", "runs", *cfg["flags"]]
+    stages, built = [], []
+
+    def file_size(a):              # a checkpoint call's path, after the call
+        return os.path.getsize(a[0])
+
+    def keep_built(fn):
+        def call(args):
+            out = fn(args)
+            built.append(dict(fusion=out[3], params=out[3].params_tree(),
+                              n_unseen=len(load_candidates(
+                                  os.path.join(args.data_root, args.dataset), "test"))))
+            return out
+        return call
+
+    def run_main(argv):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(wrapped(cli, "build_pipeline", keep_built))
+            stack.enter_context(wrapped(ckpt, "save_checkpoint", timed_calls(
+                stages, "checkpoint_save", file_size)))
+            stack.enter_context(wrapped(ckpt, "load_checkpoint", timed_calls(
+                stages, "checkpoint_load", file_size)))
+            stack.enter_context(wrapped(cli, "run_zsl_round", timed_calls(stages, "zsl_round")))
+            stack.enter_context(wrapped(FusionTrainer, "train_epoch", timed_calls(
+                stages, "epoch")))
+            reset_launches()
+            t0 = time.perf_counter()
+            cli.main(read_options(argv))
+            sync()
+            return time.perf_counter() - t0, dict(attention.LAUNCHES)
+
+    # train mode: two epochs, checkpoint + ZSL round at epoch 2, epoch 1 traced
+    train_s, launches = run_main(base + ["--epochs", "2", "--save_epochs", "2",
+                                         "--profile_dir", "prof"])
+    fusion = built[0]["fusion"]
+    on_card = fusion.device.type == "cuda"
+    m3ae = fusion.model.M3AEmodel.cfg
+    steps = fusion.steps_per_epoch
+    zcfg = cli.zsl_config(read_options(base))
+    sweeps = math.ceil(cfg["n_ent"] / 512) + math.ceil(cfg["n_rel"] / 64)
+    expect = {"attention_fwd": on_card * m3ae.depth * (
+                  2 * steps * 3 + sweeps + zcfg.train_times * (zcfg.D_epoch + zcfg.G_epoch)
+                  + built[0]["n_unseen"]),
+              "attention_fwd_packed": on_card * 2 * steps * m3ae.dec_depth}
+    epochs = [r["s"] for r in stages if r["what"] == "epoch"]
+    log(f"[cli] train mode: {train_s:.1f} s, {steps} steps per epoch, epoch {epochs[0]:.2f} s "
+        f"(traced) and {epochs[1]:.2f} s; launches {launches} expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"the CLI's train mode launched {launches}, expected {expect}")
+    want = [f"saved_models/{ds}/{f}{ext}" for f in (f"epoch2_{CLI_NAME}.ckpt",
+                                                    f"{CLI_NAME}.ckpt")
+            for ext in ("", ".meta.json")]
+    want += [f"data/{ds}/Embed_used/{f}{ext}" for f in ("Extractor", "Discriminator",
+                                                        "Generator")
+             for ext in ("", ".meta.json")]
+    missing = [f for f in want if not os.path.isfile(f)]
+    if missing:
+        raise AssertionError(f"train mode did not write {missing}")
+    (metrics,) = os.listdir("runs")
+    with open(os.path.join("runs", metrics)) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if "loss" in r]
+    mrr = [r["zsl_mrr"] for r in records if "zsl_mrr" in r]
+    if len(losses) != 2 or len(mrr) != 1 or not all(map(math.isfinite, losses + mrr)):
+        raise AssertionError(f"metrics records: loss {losses}, zsl_mrr {mrr}")
+    (trace_file,) = os.listdir("prof")
+    trace_bytes = os.path.getsize(os.path.join("prof", trace_file))
+    with open(os.path.join("prof", trace_file)) as f:
+        traced = "attention_fwd_kernel" in f.read()
+    log(f"[cli] files {len(want)} present; loss {losses} zsl_mrr {mrr[0]:.6f}; trace "
+        f"{trace_bytes} bytes, attention_fwd_kernel in it: {traced}")
+    if on_card and not traced:
+        raise AssertionError("the profiled epoch's trace has no attention_fwd_kernel")
+
+    # resume: parameters only, bit for bit, then one epoch
+    built.clear()
+    resume_s, launches_resume = run_main(base + ["--resume", "--epochs", "1",
+                                                 "--start_epoch", "2", "--save_epochs", "2"])
+    saved = torch.load(f"saved_models/{ds}/epoch2_{CLI_NAME}.ckpt", weights_only=True)
+    resumed = built[0]["params"]
+
+    def leaves(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves(v, f"{prefix}/{k}") if isinstance(v, dict)
+                       else {f"{prefix}/{k}": v})
+        return out
+
+    got, ref = leaves(resumed), leaves(saved)
+    differ = [k for k in ref if k not in got or not np.array_equal(got[k], ref[k].numpy())]
+    log(f"[cli] resume: {resume_s:.1f} s, {len(ref)} leaves, {len(differ)} differ from the "
+        f"epoch-2 checkpoint; launches {launches_resume}")
+    if differ or set(got) != set(ref):
+        raise AssertionError(f"--resume did not restore the epoch-2 parameters: {differ[:5]}")
+
+    # evaluate mode, as a user starts it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mre_tpu_torch.cli.main", *base, "--evaluate",
+                           "--pretrained_model_name", CLI_NAME],
+                          capture_output=True, text=True, env=env, timeout=900)
+    evaluate_s = time.perf_counter() - t0
+    final = [line for line in proc.stdout.splitlines() if line.startswith("[Final ZSL Scores]")]
+    log(f"[cli] evaluate mode (subprocess): exit {proc.returncode} in {evaluate_s:.1f} s; "
+        f"{final[0] if final else 'no [Final ZSL Scores] line'}")
+    if proc.returncode != 0 or not final:
+        raise AssertionError(f"evaluate mode failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join("runs", "temp_ent_embs.pkl"), "rb") as f:
+        ent = np.asarray(pickle.load(f))
+    args = read_options(base)
+    plain = FusionTrainer(fusion.table, fusion.store, dataclasses.replace(
+        cli.fusion_config(args), attention_impl="torch"), device=fusion.device)
+    plain.load_params(ckpt.load_checkpoint(f"saved_models/{ds}/{CLI_NAME}.ckpt",
+                                           plain.params_tree()))
+    reset_launches()
+    ent_plain = plain.generate_ent_embeddings().cpu().numpy()
+    if any(attention.LAUNCHES.values()):
+        raise AssertionError(f"the plain trainer launched {attention.LAUNCHES}")
+    scale = float(np.abs(ent_plain).max())
+    d_ent = float(np.abs(ent - ent_plain).max())
+    log(f"[cli] evaluate dump vs plain trainer: max|d| {d_ent:.3e}, max|plain| {scale:.3e}, "
+        f"relative {d_ent / scale:.3e} (tol {CLI_EMB_RTOL:g})")
+    if ent.shape != ent_plain.shape or not d_ent <= CLI_EMB_RTOL * scale:
+        raise AssertionError(f"evaluate-mode embeddings disagree with the plain path: "
+                             f"{ent.shape} vs {ent_plain.shape}, max|d| {d_ent}")
+
+    saves = [r for r in stages if r["what"] == "checkpoint_save"]
+    loads = [r for r in stages if r["what"] == "checkpoint_load"]
+    zsl_s = [r["s"] for r in stages if r["what"] == "zsl_round"]
+    step_ms = epochs[1] / steps * 1e3
+    log(f"[cli] stages ({card}): {step_ms:.1f} ms per step (untraced epoch; traced "
+        f"{epochs[0] / steps * 1e3:.1f}); checkpoint saves "
+        + ", ".join(f"{r['s']:.2f} s / {r['bytes']} B" for r in saves)
+        + "; loads " + ", ".join(f"{r['s']:.2f} s / {r['bytes']} B" for r in loads)
+        + f"; ZSL round {zsl_s[0]:.2f} s; evaluate entry {evaluate_s:.1f} s")
+    return dict(launches=launches, expected=expect, steps_per_epoch=steps,
+                epoch_s=epochs, step_ms=step_ms, train_s=train_s, resume_s=resume_s,
+                evaluate_s=evaluate_s, zsl_round_s=zsl_s, checkpoint_saves=saves,
+                checkpoint_loads=loads, trace_bytes=trace_bytes, metrics=records,
+                final_line=final[0], emb_max_abs=d_ent, emb_scale=scale,
+                launches_resume=launches_resume, card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -710,6 +934,7 @@ def main() -> int:
         slice_info, served = phase_slice(os.path.join(tmp, "serve"))
         train_info = phase_train(os.path.join(tmp, "train"))
         zsl_info = phase_zsl(served, card=card)
+        cli_info = phase_cli(os.path.join(tmp, "cli"), card=card)
 
     def entry(name, replaces, case):
         """One kernel's line: its times at ``case`` (float32), its launches
@@ -717,7 +942,8 @@ def main() -> int:
         rec = next(r for r in recs if r["case"] == case and r["dtype"] == "float32")
         by_path = {"serving": slice_info["launches"][name],
                    "training": train_info["launches"][name],
-                   "zsl_training": zsl_info["launches"][name]}
+                   "zsl_training": zsl_info["launches"][name],
+                   "cli": cli_info["launches"][name]}
         return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "case": case,
@@ -734,7 +960,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
                        build={f"hd{hd}_{dt}": r for (hd, dt), r in build.items()},
-                       slice=slice_info, train=train_info, zsl=zsl_info,
+                       slice=slice_info, train=train_info, zsl=zsl_info, cli=cli_info,
                        kernels=kernels["kernels"]),
                   f, indent=1)
     log(json.dumps(kernels))

@@ -1,10 +1,13 @@
 """mre_tpu_torch — the PyTorch/CUDA port of mre_tpu for NVIDIA Hopper.
 
-The package keeps the JAX package's layout (``core/``, ``ops/``,
-``models/``, ``data/``, ``eval/``, ``zsl/``, ``train/``) so that every
-module's counterpart is found under the same name. It imports torch and
-numpy only. Ported so far:
+The package keeps the JAX package's layout (``cli/``, ``core/``,
+``ops/``, ``models/``, ``data/``, ``eval/``, ``zsl/``, ``train/``,
+``utils/``) so that every module's counterpart is found under the same
+name. It imports torch and numpy only. Ported so far:
 
+* the entry point: ``python -m mre_tpu_torch.cli.main`` in train and
+  evaluate modes, with checkpoints (``core/checkpoint.py``) and the distill
+  predictor;
 * zero-shot serving: FusionTrainer.generate_ent_embeddings /
   generate_rel_embeddings → ZSLModule.update_embed → ZSLModule.evaluate
   (``rel_shared``, ``head_shared`` or ``factored``);

@@ -1,7 +1,9 @@
 """Host-side multimodal data pipeline (port of mre_tpu/data/multimodal.py).
 
-Text is tokenized once per entity / relation into dense int32 arrays with
-the hashing tokenizer (1.0 = PAD masks). Entity images are decoded, cropped
+Text is tokenized once per entity / relation into dense int32 arrays (1.0 =
+PAD masks): with a HuggingFace BERT tokenizer when ``tokenizer`` names a
+local path or name (``transformers`` is imported only then), else with the
+self-contained hashing tokenizer. Entity images are decoded, cropped
 by ``random_resized_crop`` from a per-entity seed, resized bicubically and
 normalized; entities without an image get the reference's scaled-Xavier
 noise placeholder. Decoding and resizing use ``data/images.py`` (numpy +
@@ -13,7 +15,7 @@ slot from the store's own generator (``self._rng``, seeded from the config)
 and add a 50% horizontal flip, as the JAX store does, so one seed gives the
 same training images on both sides. ``generate_batch`` defaults to the
 evaluation form (``train=False``), the form the port's serving path asks
-for. The pre-decoded image cache and HuggingFace tokenizers are not ported.
+for. The pre-decoded image cache is not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +51,39 @@ class HashingTokenizer:
             ids[i] = 1 + h % (self.vocab_size - 1)
             mask[i] = 0.0
         return ids, mask
+
+
+class HFTokenizer:
+    def __init__(self, name_or_path: str, vocab_size: int | None = None):
+        import transformers
+
+        self.tok = transformers.BertTokenizer.from_pretrained(name_or_path)
+        self.vocab_size = self.tok.vocab_size
+
+    def __call__(self, text: str, max_length: int):
+        enc = self.tok(text, padding="max_length", truncation=True,
+                       max_length=max_length, return_tensors="np",
+                       add_special_tokens=False)
+        if enc["input_ids"][0].size == 0:
+            return np.zeros(max_length, np.int32), np.ones(max_length, np.float32)
+        ids = enc["input_ids"][0].astype(np.int32)
+        mask = 1.0 - enc["attention_mask"][0].astype(np.float32)
+        return ids, mask
+
+
+def make_tokenizer(name_or_path: str | None = None, vocab_size: int = 30522):
+    """The HF tokenizer ``name_or_path`` names; on a load failure a warning
+    and the hashing tokenizer, as the JAX package does."""
+    if name_or_path:
+        try:
+            return HFTokenizer(name_or_path)
+        except Exception as e:
+            import warnings
+            warnings.warn(
+                f"tokenizer {name_or_path!r} failed to load ({e!r}); falling "
+                "back to the hashing tokenizer — token ids will NOT match a "
+                "pretrained vocabulary", stacklevel=2)
+    return HashingTokenizer(vocab_size)
 
 
 def random_resized_crop(rng: np.random.Generator, img: np.ndarray, out_size: int,
@@ -87,6 +122,7 @@ def random_resized_crop(rng: np.random.Generator, img: np.ndarray, out_size: int
 @dataclasses.dataclass
 class MultimodalPipelineConfig:
     image_size: int = 256
+    tokenizer: str | None = None
     vocab_size: int = 30522
     tokenizer_max_length: int = 64
     unpaired_tokenizer_max_length: int = 320
@@ -103,7 +139,7 @@ class MultimodalStore:
                  config: MultimodalPipelineConfig | None = None):
         self.config = config or MultimodalPipelineConfig()
         cfg = self.config
-        self.tokenizer = HashingTokenizer(cfg.vocab_size)
+        self.tokenizer = make_tokenizer(cfg.tokenizer, cfg.vocab_size)
         self.vocab_size = self.tokenizer.vocab_size
         self._rng = np.random.default_rng(cfg.seed)
 

@@ -69,7 +69,7 @@ def module_to_flax(model: nn.Module) -> tuple[dict, dict]:
     for key, t in model.state_dict().items():
         mod_path, _, name = key.rpartition(".")
         mod = modules[mod_path]
-        arr = t.detach().cpu().numpy()
+        arr = t.detach().to("cpu", copy=True).numpy()     # never a view of the module
         path = mod_path.split(".") if mod_path else []
         if isinstance(mod, SNDense) and name in ("u", "v"):
             _insert(spectral, path + [name], arr)

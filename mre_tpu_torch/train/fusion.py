@@ -25,12 +25,14 @@ every loss mean through ``node_mask`` and ``edge_mask``.
 
 Serving (module/utils.py:479-546): ``generate_ent_embeddings`` (an M3AE cls
 pass over every entity in chunks, then one full-graph RGCN sweep),
-``generate_rel_embeddings`` and ``generate`` (the generator head).
+``generate_rel_embeddings`` and ``generate`` (the generator head). The
+distill predictor (``train_distill``, ``generate_rel_embeddings_unseen``)
+maps relation descriptions to relation embeddings through a small MLP over
+the frozen text embeddings (models/distill.py).
 
 Weights are the seeded port init, or carried from the JAX package with
 ``interop.load_flax(trainer.model, params, spectral)``. Not ported:
-``compute_dtype`` (bf16 matmuls), the image cache, the mesh and
-``train_distill``.
+``compute_dtype`` (bf16 matmuls), the image cache and the mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.data.graph_sampler import NeighborSampler, edges_from_tasks
 from mre_tpu_torch.data.kg import DeviceKG, TripleTable
 from mre_tpu_torch.data.multimodal import MultimodalStore
+from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.initializers import init_weights
 from mre_tpu_torch.models.unified import UnifiedModel, unified_config
 from mre_tpu_torch.ops import losses as L
@@ -317,6 +320,19 @@ class FusionTrainer:
             return {}
         return {k: float(v) / n for k, v in agg.items()}
 
+    # -- checkpoints ---------------------------------------------------------
+
+    def params_tree(self) -> dict:
+        """The parameters as the flax-named tree of the JAX trainer's
+        ``params`` (numpy leaves; the spectral vectors are not in it)."""
+        return module_to_flax(self.model)[0]
+
+    def load_params(self, params: dict) -> None:
+        """Load a flax-named parameter tree (a checkpoint's). The spectral
+        vectors stay the running trainer's, as a JAX ``fusion.params = ...``
+        leaves ``fusion.spectral``; adam's state is left alone."""
+        load_flax(self.model, params, module_to_flax(self.model)[1])
+
     # -- serving -------------------------------------------------------------
 
     @staticmethod
@@ -353,6 +369,46 @@ class FusionTrainer:
                 self._put(self.store.rel_ids[ids_p]),
                 self._put(self.store.rel_mask[ids_p]))[:len(ids)])
         return torch.cat(out)
+
+    # -- the distill predictor (utils.py:529-546, rel_type='unseen';
+    # module/DistillModel.py) -------------------------------------------------
+
+    def train_distill(self, teacher_rel_embs, steps: int = 2000, lr: float = 1e-4,
+                      batch_size: int = 32, seed: int = 0, init_params: dict | None = None):
+        """Distill description → embedding into a small MLP over the frozen
+        text embeddings; returns (predict_unseen, model). Batches are drawn
+        as the JAX package draws them (``default_rng(seed).integers`` per
+        step). ``init_params``, a flax-named tree, replaces the seeded init
+        (how the tests carry JAX's in)."""
+        from mre_tpu_torch.models.distill import embed_tokens, make_distill_trainer
+
+        # every relation's token embeddings, once: predict_unseen indexes
+        # them, so later training of the text embedding does not reach it
+        token_embs = embed_tokens(self.model.M3AEmodel, self._put(self.store.rel_ids))
+        if not isinstance(teacher_rel_embs, torch.Tensor):
+            teacher_rel_embs = torch.from_numpy(np.array(teacher_rel_embs, np.float32))
+        teacher = teacher_rel_embs.to(self.device, torch.float32)
+        n = token_embs.shape[0]
+        model, step, predict = make_distill_trainer(
+            self.cfg.emb_dim, token_embs.shape[-1], lr=lr, seed=seed, device=self.device)
+        if init_params is not None:
+            load_flax(model, init_params)
+        rng = np.random.default_rng(seed)
+        # the draws of every step, copied to the device at once
+        idx = self._put(np.reshape([rng.integers(0, n, batch_size) for _ in range(steps)],
+                                   (steps, batch_size)), torch.int64)
+        for i in range(steps):
+            step(token_embs[idx[i]], teacher[idx[i]])
+
+        def predict_unseen(rel_ids):
+            return predict(token_embs[self._put(np.asarray(rel_ids), torch.int64)])
+
+        return predict_unseen, model
+
+    def generate_rel_embeddings_unseen(self, predict_unseen) -> torch.Tensor:
+        """All-relation embeddings through the distilled predictor
+        (generate_rel_embed(..., rel_type='unseen'))."""
+        return predict_unseen(np.arange(self.table.n_relations))
 
     def generate(self, rel_ids: np.ndarray, noise: torch.Tensor,
                  update_sn: bool = False) -> torch.Tensor:

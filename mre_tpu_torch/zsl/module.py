@@ -19,22 +19,29 @@
 Random draws (the generator noise, the gradient penalty's α and the
 dropout masks) come from one ``torch.Generator`` on the module's device,
 seeded with ``cfg.seed``; each step also takes them as ``draws`` (how the
-tests feed the JAX step's draws in). ``save``/``load``, ``mesh``,
-``predict_unseen`` and a ``compute_dtype`` other than float32 are not
-ported.
+tests feed the JAX step's draws in). ``evaluate(predict_unseen=...)``
+takes the unseen relation vectors from the distill predictor
+(``FusionTrainer.train_distill``) instead of the generator. ``save`` /
+``load`` write the Extractor, the Discriminator (with its spectral vectors)
+and the generator (the fusion parameters) as flax-named checkpoints
+(core/checkpoint.py). ``mesh`` and a ``compute_dtype`` other than float32
+are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mre_tpu_torch.core import checkpoint as ckpt
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.data import loaders
 from mre_tpu_torch.eval.zero_shot import evaluate_zero_shot, evaluate_zero_shot_rel_shared
+from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.extractor import Discriminator, Extractor
 from mre_tpu_torch.models.initializers import init_weights
 from mre_tpu_torch.models.transformer import DropoutMasks
@@ -483,6 +490,31 @@ class ZSLModule:
             out_rels += [rel] * len(triples)
         return out_embs, out_rels, []
 
+    # -- persistence (zsl_module.py:205-207, 751-755) -------------------------
+
+    def save(self, save_path: str, fusion_trainer=None):
+        """Write Extractor, Discriminator (``{"params", "spectral"}``) and,
+        given the fusion trainer, Generator (its parameters, the generator
+        head included) under ``save_path``, as the reference's Embed_used."""
+        ckpt.save_checkpoint(f"{save_path}/Extractor", module_to_flax(self.extractor)[0])
+        d_params, d_spectral = module_to_flax(self.discriminator)
+        ckpt.save_checkpoint(f"{save_path}/Discriminator",
+                             {"params": d_params, "spectral": d_spectral})
+        if fusion_trainer is not None:
+            ckpt.save_checkpoint(f"{save_path}/Generator", fusion_trainer.params_tree())
+
+    def load(self, save_path: str, fusion_trainer=None):
+        ex = ckpt.load_checkpoint(f"{save_path}/Extractor", module_to_flax(self.extractor)[0])
+        load_flax(self.extractor, ex)
+        d_params, d_spectral = module_to_flax(self.discriminator)
+        d = ckpt.load_checkpoint(f"{save_path}/Discriminator",
+                                 {"params": d_params, "spectral": d_spectral})
+        load_flax(self.discriminator, d["params"], d["spectral"])
+        gen_path = f"{save_path}/Generator"
+        if fusion_trainer is not None and os.path.exists(gen_path):
+            fusion_trainer.load_params(ckpt.load_checkpoint(gen_path,
+                                                            fusion_trainer.params_tree()))
+
     # -- evaluation (zsl_module.py:635-745) ----------------------------------
 
     def _entity_symbols(self) -> torch.Tensor:
@@ -499,13 +531,14 @@ class ZSLModule:
         """Zero-shot ranking of the ``mode`` candidates on ``eval_path``:
         'rel_shared' (one shared candidate list per relation), 'head_shared'
         (one head gather per query) or 'factored' (per-pair gathers). All
-        three give the same ranks up to float32 summation order."""
+        three give the same ranks up to float32 summation order.
+        ``predict_unseen(rel_ids) → [len(rel_ids), D]`` (the distill
+        predictor), if given, supplies each relation's vectors: one row
+        where the generator gives ``test_sample``."""
         if eval_path not in EVAL_PATHS:
             raise ValueError(f"eval_path {eval_path!r} not in {EVAL_PATHS}")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded evaluation is not ported")
-        if predict_unseen is not None:
-            raise NotImplementedError("predict_unseen (the distill predictor) is not ported")
         if compute_dtype != "float32":
             raise NotImplementedError(f"compute_dtype {compute_dtype!r}: the port "
                                       "evaluates in float32 only")
@@ -514,9 +547,13 @@ class ZSLModule:
         nbr = ex.encode_neighbors(self.symbol_table, self.connections, self.degrees)
         L, R = ex.precompute_pair_tables(self.symbol_table, nbr, self._entity_symbols())
 
-        def gen_rel_vecs(rel_name):
-            rel_ids = np.full(self.cfg.test_sample, self.r2id[rel_name])
-            return _host(fusion_trainer.generate(rel_ids, self.test_noises))
+        if predict_unseen is not None:
+            def gen_rel_vecs(rel_name):
+                return _host(predict_unseen([self.r2id[rel_name]]))
+        else:
+            def gen_rel_vecs(rel_name):
+                rel_ids = np.full(self.cfg.test_sample, self.r2id[rel_name])
+                return _host(fusion_trainer.generate(rel_ids, self.test_noises))
 
         if eval_path == "rel_shared":
             return evaluate_zero_shot_rel_shared(

@@ -165,12 +165,15 @@ def _tf32_trunc(x):
 
 def _mm_tf32(a, b, passes):
     """a @ b the way the kernel's float32 path runs it on the tensor cores:
-    one TF32 pass, or three (hi·hi + hi·lo + lo·hi, split as split_tf32)."""
+    one TF32 pass, or three (hi·hi + hi·lo + lo·hi, split as split_tf32).
+    The float32 operands are split, then the products are taken in float64:
+    the result does not depend on the CPU BLAS's reduction order or on a
+    float32 matmul-precision setting."""
     ah, bh = _tf32(a), _tf32(b)
     if passes == 1:
-        return ah @ bh
+        return ah.double() @ bh.double()
     al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
+    return al.double() @ bh.double() + ah.double() @ bl.double() + ah.double() @ bh.double()
 
 
 def test_tf32_rounding_is_rna():
@@ -192,13 +195,17 @@ def test_three_tf32_passes_hold_float32(record_property):
         pad[b, N - 64 + int(rng.integers(5, 21)):] = 1.0
     pad = torch.from_numpy(pad)
     scale = hd ** -0.5
-    ref = port.attention_reference(q, k, v, pad, scale)
+    # the reference (``attention_reference``'s math) in float64 from the
+    # same float32 inputs
+    att = (q.double() @ k.double().transpose(-1, -2)) * scale
+    ref = torch.softmax(att.masked_fill(pad[:, None, None, :] > 0, -1e7), -1) @ v.double()
 
     def emulated(passes):
         s = _mm_tf32(q, k.transpose(-1, -2), passes) * scale
         s = s.masked_fill(pad[:, None, None, :] > 0, -1e7)
         p = torch.exp(s - s.amax(-1, keepdim=True))
-        return _mm_tf32(p, v, passes) / p.sum(-1, keepdim=True)
+        # the kernel holds P in float32 registers before its P·V products
+        return _mm_tf32(p.float(), v, passes) / p.sum(-1, keepdim=True)
 
     err3 = float((emulated(3) - ref).abs().max())
     err1 = float((emulated(1) - ref).abs().max())

@@ -132,7 +132,6 @@ def test_other_eval_paths_are_refused(slice_pair):
 
 
 @pytest.mark.parametrize("option", [dict(mesh=object()),
-                                    dict(predict_unseen=lambda ids: None),
                                     dict(compute_dtype="bfloat16")])
 def test_unported_evaluate_options_are_refused(slice_pair, option):
     _, _, tf, tz = slice_pair
