@@ -15,7 +15,7 @@ def read_options(argv=None):
     parser.add_argument("--seed", default=192, type=int)
     parser.add_argument("--model_type", default="small", type=str)
     parser.add_argument("--compute_dtype", default="float32", type=str,
-                        help="M3AE matmul dtype; only float32 is ported")
+                        help="M3AE transformer dtype: float32 or bfloat16")
     parser.add_argument("--eval_path", default="rel_shared", type=str,
                         choices=["factored", "head_shared", "rel_shared"],
                         help="zero-shot ranking body (ZSLModule.evaluate): "
@@ -80,7 +80,7 @@ def read_options(argv=None):
     parser.add_argument("--image_size", default=256, type=int)
     parser.add_argument("--text_only", action="store_true")
     parser.add_argument("--pretrained_m3ae", default="", type=str,
-                        help="path to a flax m3ae checkpoint pickle (CC12M); not ported")
+                        help="path to a flax m3ae checkpoint pickle (CC12M)")
     parser.add_argument("--output_dir", default="./runs", type=str)
     parser.add_argument("--profile_dir", default="", type=str,
                         help="write a torch.profiler Chrome trace of the first epoch here")

@@ -9,7 +9,10 @@ zero-shot test queries (main.py:274-351).
 Checkpoints hold the fusion parameters only, as in the JAX package:
 ``--resume`` and ``--pretrained_model_name`` restore them, while adam's
 state, the schedule step, the spectral vectors and the sampler start
-fresh; ``--start_epoch`` offsets the epoch labels.
+fresh; ``--start_epoch`` offsets the epoch labels. ``--pretrained_m3ae``
+loads the upstream CC12M pickle's encoder side first
+(``models/m3ae.py::load_cc12m_checkpoint``). ``--compute_dtype bfloat16``
+reaches the fusion trainer and the evaluation.
 
 Usage:
     python -m mre_tpu_torch.cli.main --dataset FB15K-237-ZS --data_root ./origin_data \\
@@ -29,20 +32,19 @@ from mre_tpu_torch.core.metrics import MetricLogger
 from mre_tpu_torch.data.kg import TripleTable
 from mre_tpu_torch.data.loaders import load_zsl_dataset
 from mre_tpu_torch.data.multimodal import MultimodalPipelineConfig, MultimodalStore
+from mre_tpu_torch.models.m3ae import load_cc12m_checkpoint
+from mre_tpu_torch.models.transformer import compute_dtype
 from mre_tpu_torch.train.fusion import FusionConfig, FusionTrainer
 from mre_tpu_torch.zsl.module import ZSLConfig, ZSLModule
 
 
 def check_ported(args) -> None:
-    """Refuse the options the port does not have yet (ROADMAP.md §1)."""
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: only float32 is ported "
-            "(ROADMAP.md §1 item 7)")
-    if args.pretrained_m3ae:
-        raise NotImplementedError(
-            "--pretrained_m3ae: the CC12M checkpoint is a pickled flax train "
-            "state; its loader waits for a converter (ROADMAP.md §1 item 4)")
+    """Check the options before anything is built. Every flag of the JAX
+    entry point is ported; the one part of the JAX pipeline that is not is
+    the mesh (ROADMAP.md §1 item 6), which no flag selects.
+    ``--compute_dtype`` must name a type the attention kernel has (float32
+    or bfloat16; a ValueError otherwise)."""
+    compute_dtype(args.compute_dtype)
 
 
 def fusion_config(args) -> FusionConfig:
@@ -60,7 +62,7 @@ def fusion_config(args) -> FusionConfig:
         lr_maximum=args.lr_maximum, lr_minimum=args.lr_minimum,
         lr_warmup_epochs=args.lr_warmup_epochs, epochs=args.epochs,
         accumulate_grad_steps=args.accumulate_grad_steps,
-        seed=args.seed, text_only=args.text_only)
+        seed=args.seed, text_only=args.text_only, compute_dtype=args.compute_dtype)
 
 
 def zsl_config(args) -> ZSLConfig:
@@ -92,6 +94,10 @@ def build_pipeline(args):
     table = TripleTable.build(np.asarray(data["triples"]).T,
                               len(data["e2id"]), len(data["r2id"]))
     fusion = FusionTrainer(table, store, fusion_config(args), device=args.device)
+
+    if args.pretrained_m3ae:
+        load_cc12m_checkpoint(args.pretrained_m3ae, fusion.model.M3AEmodel)
+        print(f"Loaded pretrained M3AE from {args.pretrained_m3ae}")
 
     if args.pretrained_model_name:
         path = f"./saved_models/{args.dataset}/{args.pretrained_model_name}.ckpt"

@@ -13,14 +13,22 @@ Evaluation batches draw each entity's crop from a seed derived from its
 id, so repeated sweeps are identical. Training batches draw one seed per
 slot from the store's own generator (``self._rng``, seeded from the config)
 and add a 50% horizontal flip, as the JAX store does, so one seed gives the
-same training images on both sides. ``generate_batch`` defaults to the
-evaluation form (``train=False``), the form the port's serving path asks
-for. The pre-decoded image cache is not ported.
+same training images on both sides. ``entity_images`` and
+``generate_batch`` default to the training form (``train=True``), as in
+JAX.
+
+``precompute_image_cache`` decodes every entity image once into a uint8
+cache ``round(image_size · margin)`` px wide; from then on
+``entity_images`` crops a fixed-size random window from it (and flips it in
+training) instead of decoding, for training and evaluation alike, draw for
+draw as the JAX store does (mre_tpu/data/multimodal.py:199-238, 271-294),
+on the thread pool the decoding path uses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -174,6 +182,34 @@ class MultimodalStore:
 
         self.num_nodes = n
         self.num_relations = R
+        self._img_cache = self._img_cache_map = self._cache_size = None
+
+    def precompute_image_cache(self, margin: float = 1.15) -> float:
+        """Decode every entity that has an image once and resize it
+        bicubically into a uint8 cache of ``round(image_size · margin)`` px
+        (``_img_cache``, one row per such entity; ``_img_cache_map`` maps an
+        entity id to its row, −1 without an image), on 8 threads. Raises
+        ``MemoryError`` above 8 GB. Returns the decode wall time in seconds."""
+        s_out = int(round(self.config.image_size * margin))
+        t0 = time.time()
+        img_ids = np.flatnonzero(self.has_image)
+        gb = len(img_ids) * s_out * s_out * 3 / 1e9
+        if gb > 8.0:
+            raise MemoryError(
+                f"image cache would need {gb:.1f} GB ({len(img_ids)} images "
+                f"at {s_out}px); disable FusionConfig.image_cache or lower "
+                f"image_size for this dataset")
+        cache = np.zeros((len(img_ids), s_out, s_out, 3), np.uint8)
+        idx_of = np.full(self.num_nodes, -1, np.int64)
+        idx_of[img_ids] = np.arange(len(img_ids))
+
+        def work(row):
+            cache[row] = resize_bicubic(decode_png(self.images[img_ids[row]]), s_out, s_out)
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(work, range(len(img_ids))))
+        self._img_cache, self._img_cache_map, self._cache_size = cache, idx_of, s_out
+        return time.time() - t0
 
     @staticmethod
     def _placeholder(rng: np.random.Generator, s: int) -> np.ndarray:
@@ -182,12 +218,15 @@ class MultimodalStore:
         limit = 1.0 / np.sqrt(s)
         return (rng.uniform(-limit, limit, (s, s, 3)) * 10.0).astype(np.float32)
 
-    def entity_images(self, node_ids: np.ndarray, train: bool = False,
+    def entity_images(self, node_ids: np.ndarray, train: bool = True,
                       workers: int = 8) -> np.ndarray:
-        """Images [n, S, S, 3] float32: decode, random resized crop, and in
-        training a 50% horizontal flip. Per-slot seeds are drawn up front
-        (thread-safe, order-deterministic): from ``self._rng`` in training,
-        from the entity id in evaluation."""
+        """Images [n, S, S, 3] float32: decode, random resized crop (with
+        the cache: a random window of the cached image), and in training a
+        50% horizontal flip. Per-slot seeds are drawn up front (thread-safe,
+        order-deterministic): from ``self._rng`` in training, from the entity
+        id in evaluation. Each slot's ``default_rng(seed)`` draws the crop
+        (from the cache: the window's top, then its left), then the flip
+        coin in training; text-only entities get the placeholder from it."""
         cfg = self.config
         node_ids = np.asarray(node_ids)
         mean = np.asarray(self.image_mean, np.float32)
@@ -201,13 +240,16 @@ class MultimodalStore:
         def work(k):
             i = node_ids[k]
             rng = np.random.default_rng(seeds[k])
-            if self.has_image[i]:
-                img = random_resized_crop(rng, decode_png(self.images[i]), cfg.image_size)
-                if train and rng.random() < 0.5:
-                    img = img[:, ::-1]
-                out[k] = (img.astype(np.float32) / 255.0 - mean) / std
-            else:
+            if not self.has_image[i]:
                 out[k] = self._placeholder(rng, cfg.image_size)
+                return
+            if self._img_cache is not None:
+                img = self._cached_window(rng, i)
+            else:
+                img = random_resized_crop(rng, decode_png(self.images[i]), cfg.image_size)
+            if train and rng.random() < 0.5:
+                img = img[:, ::-1]
+            out[k] = (img.astype(np.float32) / 255.0 - mean) / std
 
         if workers > 1 and len(node_ids) > 4:
             with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -217,7 +259,15 @@ class MultimodalStore:
                 work(k)
         return out
 
-    def generate_batch(self, node_ids, rel_ids, train: bool = False) -> dict:
+    def _cached_window(self, rng: np.random.Generator, i: int) -> np.ndarray:
+        """A random ``image_size`` window of entity ``i``'s cached image."""
+        osz = self.config.image_size
+        span = self._cache_size - osz
+        top = int(rng.integers(0, span + 1)) if span > 0 else 0
+        left = int(rng.integers(0, span + 1)) if span > 0 else 0
+        return self._img_cache[self._img_cache_map[i], top:top + osz, left:left + osz]
+
+    def generate_batch(self, node_ids, rel_ids, train: bool = True) -> dict:
         """Reference MMKGDataset.generate_batch semantics
         (module/data.py:272-314), pre-tokenized and batched."""
         node_ids = np.asarray(node_ids, np.int32)

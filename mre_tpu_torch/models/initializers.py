@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to ±2
@@ -49,14 +50,31 @@ def uniform(shape, bound: float, gen) -> torch.Tensor:
 _KERNEL_INITS = {"xavier_uniform": xavier_uniform, "xavier_normal": xavier_normal}
 
 
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None):
+    """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``
+    (default: the kernel's own). Below float32 the product is rounded to
+    ``dtype`` before the bias is added, as flax adds the bias after
+    ``dot_general``; in float32 it is one ``F.linear``."""
+    dtype = layer.weight.dtype if dtype is None else dtype
+    if dtype == torch.float32:
+        return F.linear(x, layer.weight, layer.bias)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` whose ``init_`` draws the flax Dense init: the kernel
-    from ``kernel_init`` on the flax [in, out] shape, the bias zero."""
+    from ``kernel_init`` on the flax [in, out] shape, the bias zero. Its
+    forward is ``dense`` (flax's rounding when the module is cast to
+    bfloat16)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  kernel_init: str = "xavier_uniform"):
         super().__init__(in_features, out_features, bias=bias)
         self.kernel_init = kernel_init
+
+    def forward(self, x):
+        return dense(self, x)
 
     @torch.no_grad()
     def init_(self, gen):

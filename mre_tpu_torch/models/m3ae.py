@@ -13,17 +13,30 @@ decoder that reconstructs image patches and text tokens.
 * ``forward`` — the JAX ``__call__``: encoder then decoder.
 
 The masking permutations are arguments (``image_ids_shuffle``,
-``text_ids_shuffle``), not draws: see ``ops/masking.py``.
+``text_ids_shuffle``), not draws: see ``ops/masking.py``. The config's
+``compute_dtype`` reaches the encoder and decoder ``Transformer``s only;
+the embeddings, the decoder's input projection and the output heads stay
+float32, as in JAX (m3ae.py:89-109). The masked passes are not
+deterministic by default, as in JAX: with nonzero ``att_drop`` / ``drop``
+/ ``drop_path`` they take their masks from ``drop`` (a ``DropoutMasks``).
+
+``load_cc12m_checkpoint`` reads the upstream flax CC12M pickle without
+flax and copies its encoder-side leaves into the module.
 """
 
 from __future__ import annotations
 
+import codecs
+import pickle
+
+import numpy as np
 import torch
 from torch import nn
 
 from mre_tpu_torch.core.config import Config, transformer_preset
+from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.initializers import Dense, normal
-from mre_tpu_torch.models.transformer import MLP, Transformer
+from mre_tpu_torch.models.transformer import MLP, Transformer, compute_dtype
 from mre_tpu_torch.ops.masking import random_masking, restore_with_mask_tokens
 from mre_tpu_torch.ops.pos_embed import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
 
@@ -36,6 +49,7 @@ def m3ae_config(model_type: str = "small", updates: dict | None = None) -> Confi
         use_type_embedding=True,
         image_mask_ratio=0.75,
         text_mask_ratio=0.75,
+        compute_dtype="float32",    # "bfloat16": the transformers' Dense layers in bf16
         attention_impl="auto",      # auto | kernel | torch (transformer.py)
     ))
     cfg.update(transformer_preset(model_type))
@@ -72,7 +86,8 @@ class M3AE(nn.Module):
                 continue
             setattr(self, name, nn.Parameter(torch.zeros(1, 1, cfg[width])))
         impl = cfg.get("attention_impl", "auto")
-        drops = dict(att_drop=cfg.att_drop, drop=cfg.drop, drop_path=cfg.drop_path)
+        drops = dict(att_drop=cfg.att_drop, drop=cfg.drop, drop_path=cfg.drop_path,
+                     dtype=compute_dtype(cfg.get("compute_dtype", "float32")))
         self.encoder = Transformer(cfg.emb_dim, cfg.depth, cfg.num_heads,
                                    cfg.mlp_ratio, impl, **drops)
         self.decoder = Transformer(cfg.dec_emb_dim, cfg.dec_depth,
@@ -130,7 +145,8 @@ class M3AE(nn.Module):
                 + self._type_emb("encoder_text_type_embedding"))
 
     def forward_encoder(self, image, text, text_padding_mask,
-                        image_ids_shuffle=None, text_ids_shuffle=None):
+                        image_ids_shuffle=None, text_ids_shuffle=None,
+                        deterministic: bool = False, drop=None):
         """Masked encoder pass. Each present modality keeps
         int(L·(1 − ratio)) tokens, the first of its ``*_ids_shuffle``
         permutation [L]. Returns (cls, image_x, text_x, image_mask,
@@ -155,7 +171,7 @@ class M3AE(nn.Module):
             toks.append(m.kept)
             pads.append(m.padding_mask_kept)
             text_mask, text_ids_restore = m.mask, m.ids_restore
-        x = self.encoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1))
+        x = self.encoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1), deterministic, drop)
         cls_x = x[:, :1, :]
         if image is None:
             image_x, text_x = None, x[:, 1:, :]
@@ -167,7 +183,8 @@ class M3AE(nn.Module):
                 image_ids_restore, text_ids_restore)
 
     def forward_decoder(self, cls_x, image_x, text_x, image_ids_restore,
-                        text_ids_restore, text_padding_mask):
+                        text_ids_restore, text_padding_mask, deterministic: bool = False,
+                        drop=None):
         """Decoder over [cls | every image position | every text position],
         dropped positions filled with the mask embeddings; the text part
         takes the FULL padding mask (m3ae.py:216)."""
@@ -191,7 +208,7 @@ class M3AE(nn.Module):
                 width, text_ids_restore.shape[0])).to(dev)
             toks.append(x + pos + self._type_emb("decoder_text_type_embedding"))
             pads.append(text_padding_mask.to(torch.float32))
-        x = self.decoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1))
+        x = self.decoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1), deterministic, drop)
         if image_x is None:
             return None, self.decoder_text_output(x[:, 1:, :])
         if text_x is None:
@@ -200,13 +217,117 @@ class M3AE(nn.Module):
                 self.decoder_text_output(x[:, img_len + 1:, :]))
 
     def forward(self, image, text, text_padding_mask, image_ids_shuffle=None,
-                text_ids_shuffle=None):
+                text_ids_shuffle=None, deterministic: bool = False, drop=None):
         """The JAX ``__call__``: (image_output, text_output, image_mask,
-        text_mask)."""
+        text_mask). ``drop`` serves the encoder's masks, then the
+        decoder's."""
         (cls_x, image_x, text_x, image_mask, text_mask,
          image_ids_restore, text_ids_restore) = self.forward_encoder(
-            image, text, text_padding_mask, image_ids_shuffle, text_ids_shuffle)
+            image, text, text_padding_mask, image_ids_shuffle, text_ids_shuffle,
+            deterministic, drop)
         image_output, text_output = self.forward_decoder(
             cls_x, image_x, text_x, image_ids_restore, text_ids_restore,
-            text_padding_mask)
+            text_padding_mask, deterministic, drop)
         return image_output, text_output, image_mask, text_mask
+
+
+# -- the upstream CC12M checkpoint (m3ae.py:240-267) -----------------------------
+
+# leaves copied from the checkpoint, as JAX copies them: the named tokens and
+# embeddings, then whole subtrees
+CC12M_TOKENS = ("cls_token", "encoder_image_type_embedding", "encoder_text_type_embedding",
+                "image_mask_embedding", "text_mask_embedding",
+                "decoder_image_type_embedding", "decoder_text_type_embedding")
+CC12M_SUBTREES = ("image_embedding", "text_embedding", "encoder")
+
+
+class _Pickled:
+    """A pickled object of a class the port does not have (a flax
+    ``TrainState``, an optax state): its constructor arguments and its
+    attributes."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        obj.args = args
+        return obj
+
+    def __setstate__(self, state):
+        if isinstance(state, tuple):          # (dict state, slot state)
+            state = {**(state[0] or {}), **(state[1] or {})}
+        self.__dict__.update(state)
+
+
+def _jax_array(fun, args, arr_state, aval_state):
+    """jax ``_reconstruct_array`` (jax/_src/array.py) on the host: the
+    numpy array it wraps."""
+    out = fun(*args)
+    out.__setstate__(arr_state)
+    return out
+
+
+def _frombuffer(buf, dtype, shape, order):
+    """numpy's ``_frombuffer`` (pickle protocol 5)."""
+    return np.frombuffer(buf, dtype=dtype).reshape(shape, order=order)
+
+
+_ALLOWED_GLOBALS = {
+    ("flax.training.train_state", "TrainState"): _Pickled,
+    ("optax._src.transform", "ScaleByAdamState"): _Pickled,
+    ("optax._src.base", "EmptyState"): _Pickled,
+    ("flax.core.frozen_dict", "FrozenDict"): dict,     # flax < 0.7 parameter trees
+    ("jax._src.array", "_reconstruct_array"): _jax_array,
+    ("numpy", "ndarray"): np.ndarray,
+    ("numpy", "dtype"): np.dtype,
+    ("_codecs", "encode"): codecs.encode,              # bytes under pickle protocol 2
+    **{(f"{mod}.multiarray", name): fn for mod in ("numpy.core", "numpy._core")
+       for name, fn in (("_reconstruct", np.zeros(0).__reduce__()[0]),
+                        ("scalar", np.zeros(1)[0].__reduce__()[0]))},
+    **{(f"{mod}.numeric", "_frombuffer"): _frombuffer for mod in ("numpy.core", "numpy._core")},
+}
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Resolves only the globals a pickled flax train state names; any
+    other global is refused by name."""
+
+    def find_class(self, module, name):
+        found = _ALLOWED_GLOBALS.get((module, name))
+        if found is None:
+            raise pickle.UnpicklingError(
+                f"checkpoint pickle names the global {module}.{name}, which the "
+                "CC12M loader does not allow")
+        return found
+
+
+def _cast_like(src, ref, path: str):
+    """``src`` cast leaf by leaf to ``ref``'s dtypes; a structure that
+    differs from ``ref``'s raises, as ``jax.tree_util.tree_map`` does."""
+    if isinstance(ref, dict):
+        if not isinstance(src, dict) or set(src) != set(ref):
+            got = sorted(src) if isinstance(src, dict) else type(src).__name__
+            raise ValueError(f"checkpoint subtree {path!r}: {got} does not match the "
+                             f"model's {sorted(ref)}")
+        return {k: _cast_like(src[k], ref[k], f"{path}/{k}") for k in ref}
+    if isinstance(src, dict):
+        raise ValueError(f"checkpoint subtree {path!r} is a dict where the model has a leaf")
+    return np.asarray(src).astype(ref.dtype)
+
+
+def load_cc12m_checkpoint(path: str, module: "M3AE") -> "M3AE":
+    """Load the upstream flax M3AE pickle ``{'state': <flax TrainState>,
+    'variant': ...}`` into ``module`` without flax (m3ae.py:240-267): the
+    tokens of ``CC12M_TOKENS`` and the subtrees of ``CC12M_SUBTREES`` that
+    both the checkpoint's ``state.params['params']`` and the module have
+    are copied, each leaf cast to the module's dtype; the rest keeps its
+    init. Only the globals such a pickle names are resolved."""
+    with open(path, "rb") as f:
+        data = _CheckpointUnpickler(f).load()
+    src = data["state"].params["params"]
+    out = module_to_flax(module)[0]
+    for name in CC12M_TOKENS:
+        if name in src and name in out:
+            out[name] = np.asarray(src[name]).astype(out[name].dtype)
+    for name in CC12M_SUBTREES:
+        if name in src and name in out:
+            out[name] = _cast_like(src[name], out[name], name)
+    return load_flax(module, out)

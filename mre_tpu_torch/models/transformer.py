@@ -10,7 +10,16 @@ Semantics kept from the JAX package:
   an identity when axis 1 has size 1 (module/submodule.py:58-77);
 * GELU is exact;
 * qkv comes from one Dense(3·dim) reshaped to [B, N, 3, H, hd];
-* ``padding_mask`` is 1.0 at PAD keys, which get the logit −1e7.
+* ``padding_mask`` is 1.0 at PAD keys, which get the logit −1e7;
+* ``compute_dtype`` (float32 or bfloat16) is the dtype of the attention's
+  and the MLP's Dense layers over float32 parameters, as flax
+  ``Dense(dtype=...)``: their outputs, q, k, v and the GELU activations are
+  in it, while every LayerNorm and the residual stream stay float32
+  (``inputs + x`` promotes, transformer.py:157-170);
+* dropout and DropPath act when a pass is not ``deterministic``, at JAX's
+  six sites in JAX's call order (attention probabilities, ``proj_drop``,
+  DropPath, MLP after GELU, MLP after ``fc2``, DropPath); their masks come
+  from a ``DropoutMasks``. A rate of 0 draws no mask, as in flax.
 """
 
 from __future__ import annotations
@@ -19,10 +28,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mre_tpu_torch.models.initializers import Dense
+from mre_tpu_torch.models.initializers import Dense, dense
 from mre_tpu_torch.ops.attention import fused_attention
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` name; the port computes in
+    float32 or bfloat16 (the kernel's two instantiations)."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} not in {tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU. Below float32 it is ``jax.nn.gelu``'s op sequence,
+    ``0.5 · x · erfc(−x · √½)`` with √½ and every product rounded to
+    ``x``'s dtype, as JAX computes it op by op; in float32 one ``F.gelu``."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=x.dtype, device=x.device)
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -48,82 +76,123 @@ class LayerNormalization(nn.Module):
 
 
 class TransformerMLP(nn.Module):
-    def __init__(self, dim: int, out_dim: int, hidden_ratio: int = 4):
+    def __init__(self, dim: int, out_dim: int, hidden_ratio: int = 4, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dropout = dropout
+        self.compute_dtype = dtype
         self.fc1 = Dense(dim, hidden_ratio * dim)
         self.fc2 = Dense(hidden_ratio * dim, out_dim)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+    def forward(self, x, deterministic: bool = True, drop=None):
+        dropping = self.dropout and not deterministic
+        x = gelu(dense(self.fc1, x, self.compute_dtype))
+        if dropping:
+            x = drop(x, self.dropout)
+        x = dense(self.fc2, x, self.compute_dtype)
+        return drop(x, self.dropout) if dropping else x
+
+
+def _attention_dropped(q, k, v, padding_mask, scale, rate, drop):
+    """JAX's plain attention with dropout on the probabilities
+    (transformer.py:129-137): float32 logits and softmax, the output in
+    float32."""
+    att = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if padding_mask is not None:
+        att = att.masked_fill(padding_mask[:, None, None, :] > 0, -1e7)
+    att = drop(torch.softmax(att, dim=-1), rate)
+    return torch.einsum("bhqk,bhkd->bhqd", att, v.float())
 
 
 class Attention(nn.Module):
     """Multi-head self-attention; ``attention_impl``: auto | kernel | torch
     (the JAX auto | pallas | xla). ``auto`` launches the Hopper kernel for
-    CUDA tensors and runs the plain version for CPU tensors."""
+    CUDA tensors and runs the plain version for CPU tensors. A pass with
+    attention dropout (``att_drop > 0``, not ``deterministic``) takes the
+    plain attention, as JAX does (transformer.py:124): no kernel there."""
 
     def __init__(self, dim: int, num_heads: int = 8, use_bias: bool = False,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", att_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.attention_impl = attention_impl
+        self.att_drop = att_drop
+        self.proj_drop = proj_drop
+        self.compute_dtype = dtype
         self.Dense_0 = Dense(dim, 3 * dim, bias=use_bias)
         self.Dense_1 = Dense(dim, dim)
 
-    def forward(self, x, padding_mask=None):
+    def forward(self, x, padding_mask=None, deterministic: bool = True, drop=None):
         batch, n, channels = x.shape
         head_dim = self.dim // self.num_heads
-        qkv = self.Dense_0(x).reshape(batch, n, 3, self.num_heads, head_dim)
+        qkv = dense(self.Dense_0, x, self.compute_dtype).reshape(
+            batch, n, 3, self.num_heads, head_dim)
         qkv = qkv.permute(2, 0, 3, 1, 4)                 # [3, B, H, N, hd]
         q, k, v = (t.contiguous() for t in qkv.unbind(0))
         if padding_mask is not None:
             padding_mask = padding_mask.to(torch.float32).contiguous()
-        out = fused_attention(q, k, v, padding_mask, head_dim ** -0.5,
-                              self.attention_impl)
+        scale = head_dim ** -0.5
+        if self.att_drop and not deterministic:
+            out = _attention_dropped(q, k, v, padding_mask, scale, self.att_drop, drop)
+        else:
+            out = fused_attention(q, k, v, padding_mask, scale, self.attention_impl)
         out = out.transpose(1, 2).reshape(batch, n, channels)
-        return self.Dense_1(out)
+        out = dense(self.Dense_1, out, self.compute_dtype)
+        if self.proj_drop and not deterministic:
+            out = drop(out, self.proj_drop)
+        return out
 
 
 class Block(nn.Module):
     def __init__(self, emb_dim: int = 256, num_heads: int = 8, mlp_ratio: int = 4,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", att_drop: float = 0.0, drop: float = 0.0,
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.drop_path = drop_path
         self.LayerNorm_0 = layer_norm(emb_dim)
-        self.Attention_0 = Attention(emb_dim, num_heads, True, attention_impl)
+        self.Attention_0 = Attention(emb_dim, num_heads, True, attention_impl,
+                                     att_drop, drop, dtype)
         self.LayerNorm_1 = layer_norm(emb_dim)
-        self.TransformerMLP_0 = TransformerMLP(emb_dim, emb_dim, mlp_ratio)
+        self.TransformerMLP_0 = TransformerMLP(emb_dim, emb_dim, mlp_ratio, drop, dtype)
 
-    def forward(self, inputs, padding_mask=None):
-        x = self.Attention_0(self.LayerNorm_0(inputs), padding_mask)
-        inputs = inputs + x
-        return inputs + self.TransformerMLP_0(self.LayerNorm_1(inputs))
+    def _drop_path(self, x, deterministic, drop):
+        return drop.path(x, self.drop_path) if self.drop_path and not deterministic else x
+
+    def forward(self, inputs, padding_mask=None, deterministic: bool = True, drop=None):
+        x = self.Attention_0(self.LayerNorm_0(inputs), padding_mask, deterministic, drop)
+        inputs = inputs + self._drop_path(x, deterministic, drop)
+        x = self.TransformerMLP_0(self.LayerNorm_1(inputs), deterministic, drop)
+        return inputs + self._drop_path(x, deterministic, drop)
 
 
 class Transformer(nn.Module):
     """Pre-LN block stack + final LayerNorm.
 
     ``att_drop``, ``drop`` and ``drop_path`` are the JAX config's dropout
-    and stochastic-depth rates. The M3AE presets set all three to 0, where
-    DropPath and Dropout are identities on every path; a nonzero rate is
-    refused, because the port's random bits could not match JAX's."""
+    and stochastic-depth rates; ``dtype`` is the compute dtype of the
+    blocks' Dense layers. A pass that is not ``deterministic`` with a
+    nonzero rate takes its masks from ``drop`` (a ``DropoutMasks``)."""
 
     def __init__(self, emb_dim: int = 1024, depth: int = 24, num_heads: int = 16,
                  mlp_ratio: int = 4, attention_impl: str = "auto",
-                 att_drop: float = 0.0, drop: float = 0.0, drop_path: float = 0.0):
+                 att_drop: float = 0.0, drop: float = 0.0, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if att_drop or drop or drop_path:
-            raise ValueError(f"dropout is not ported: att_drop={att_drop}, "
-                             f"drop={drop}, drop_path={drop_path} must be 0")
         self.depth = depth
+        self.dropping = bool(att_drop or drop or drop_path)
         for i in range(depth):
-            self.add_module(f"Block_{i}", Block(emb_dim, num_heads, mlp_ratio,
-                                                attention_impl))
+            self.add_module(f"Block_{i}", Block(emb_dim, num_heads, mlp_ratio, attention_impl,
+                                                att_drop, drop, drop_path, dtype))
         self.LayerNorm_0 = layer_norm(emb_dim)
 
-    def forward(self, x, padding_mask=None):
+    def forward(self, x, padding_mask=None, deterministic: bool = True, drop=None):
+        if self.dropping and not deterministic and drop is None:
+            raise ValueError("Transformer: a non-deterministic pass with nonzero dropout "
+                             "rates needs drop (DropoutMasks)")
         for i in range(self.depth):
-            x = getattr(self, f"Block_{i}")(x, padding_mask)
+            x = getattr(self, f"Block_{i}")(x, padding_mask, deterministic, drop)
         return self.LayerNorm_0(x)
 
 
@@ -161,12 +230,18 @@ class MLP(nn.Module):
 
 
 class DropoutMasks:
-    """The keep masks of a sequence of flax ``nn.Dropout`` calls, handed out
-    in call order. Each mask is drawn from ``generator`` (keep where
-    U[0, 1) < 1 − rate, as ``jax.random.bernoulli``) or, when ``masks`` is
-    given, taken from it (boolean arrays, True = keep; e.g. the JAX step's
-    own masks in the tests). Kept values are scaled by 1 / (1 − rate), as
-    flax does."""
+    """The masks of a sequence of flax ``nn.Dropout`` and ``DropPath``
+    calls, handed out in call order. Each is drawn from ``generator`` or,
+    when ``masks`` is given, taken from it (e.g. the JAX step's own masks
+    in the tests).
+
+    * ``drop(x, rate)`` — ``nn.Dropout``: keep where U[0, 1) < 1 − rate, as
+      ``jax.random.bernoulli``; a given mask is boolean (True = keep) of
+      ``x``'s shape. Kept values are scaled by 1 / (1 − rate), as flax does.
+    * ``drop.path(x, rate)`` — ``DropPath`` (transformer.py:50-63): one
+      0/1 value per sample, ``floor(keep + U)`` over ``[B, 1, …]``, applied
+      as ``x / keep · mask`` (the float32 mask promotes a bfloat16 ``x``,
+      as in JAX); a given mask has that ``[B, 1, …]`` shape."""
 
     def __init__(self, generator: torch.Generator | None = None, masks=None):
         if (generator is None) == (masks is None):
@@ -175,19 +250,34 @@ class DropoutMasks:
         self._given = None if masks is None else list(masks)
         self.used = 0
 
+    def _take(self, shape, dtype, device) -> torch.Tensor:
+        if self.used == len(self._given):
+            raise ValueError(f"DropoutMasks: only {len(self._given)} masks given")
+        mask = torch.as_tensor(self._given[self.used], dtype=dtype, device=device)
+        if tuple(mask.shape) != tuple(shape):
+            raise ValueError(f"DropoutMasks: mask {self.used} has shape "
+                             f"{tuple(mask.shape)}, expected {tuple(shape)}")
+        return mask
+
     def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         keep = 1.0 - rate
         if self._given is not None:
-            if self.used == len(self._given):
-                raise ValueError(f"DropoutMasks: only {len(self._given)} masks given")
-            mask = torch.as_tensor(self._given[self.used], dtype=torch.bool, device=x.device)
-            if tuple(mask.shape) != tuple(x.shape):
-                raise ValueError(f"DropoutMasks: mask {self.used} has shape "
-                                 f"{tuple(mask.shape)}, the input {tuple(x.shape)}")
+            mask = self._take(x.shape, torch.bool, x.device)
         else:
             mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
         self.used += 1
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def path(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        keep = 1.0 - rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        if self._given is not None:
+            mask = self._take(shape, torch.float32, x.device)
+        else:
+            mask = torch.floor(keep + torch.rand(shape, generator=self.generator,
+                                                 device=x.device))
+        self.used += 1
+        return x / keep * mask
 
     def check_all_used(self):
         """Given masks must be used up by the step they were given for."""

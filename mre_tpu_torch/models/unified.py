@@ -12,6 +12,10 @@ Reference quirk kept (``norm_rel_emb=False``): ``forward_relation_emb``
 drops the LayerNorm (module/model.py:609 discards its result) while
 ``generate`` applies it (model.py:686).
 
+``compute_dtype`` reaches the M3AE encoder and decoder transformers only:
+RGCN, the spectral-norm layers, the heads and the losses stay float32, as
+in JAX (unified.py:50,71).
+
 ``forward`` is the JAX ``__call__(is_evaluate=True)``: (x_gcn, rel_emb).
 ``forward_train`` is the training ``__call__``: it adds the masked encoder,
 the decoder and the contrastive loss, and steps the spectral norms of the
@@ -44,6 +48,7 @@ def unified_config(model_type: str = "small", updates: dict | None = None) -> Co
         leaky_slope=0.2,
         contrastive=True,
         norm_rel_emb=False,
+        compute_dtype="float32",     # forwarded to the M3AE transformers
         attention_impl="auto",       # forwarded to the M3AE transformers
     ))
     if updates:
@@ -63,6 +68,7 @@ class UnifiedModel(nn.Module):
         m3ae_cfg = m3ae_config(cfg.model_type, dict(
             image_mask_ratio=cfg.image_mask_ratio,
             text_mask_ratio=cfg.text_mask_ratio,
+            compute_dtype=cfg.compute_dtype,
             attention_impl=cfg.attention_impl))
         self.reduced_dim = m3ae_cfg.emb_dim
         self.dim = cfg.emb_dim

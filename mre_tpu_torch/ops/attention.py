@@ -17,7 +17,9 @@ the softmax.
   stand for ``_attention_kernel`` and count in ``LAUNCHES["attention_fwd"]``;
   head_dim 32 (the M3AE decoder) stands for ``_attention_kernel_packed``,
   whose head packing is a TPU lane-layout device, and counts in
-  ``LAUNCHES["attention_fwd_packed"]``.
+  ``LAUNCHES["attention_fwd_packed"]``. ``LAUNCHES_BY_DTYPE`` splits each
+  count by the inputs' dtype (``"attention_fwd.bfloat16"``, ...), so a
+  caller can tell which instantiation ran; ``reset_launches`` zeroes both.
 * ``FusedAttention`` — the ``jax.custom_vjp`` split of the JAX package: the
   forward runs the kernel on a CUDA tensor and the plain version on a CPU
   tensor; the backward recomputes through the plain version, as ``_bwd``
@@ -43,7 +45,14 @@ HEAD_DIMS = (32, 64, 80)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"attention_fwd": 0, "attention_fwd_packed": 0}
+LAUNCHES_BY_DTYPE = {f"{k}.{d}": 0 for k in LAUNCHES for d in ("float32", "bfloat16")}
 _lib = None
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE):
+        for key in counts:
+            counts[key] = 0
 
 
 def launch_key(head_dim: int) -> str:
@@ -208,6 +217,7 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float, lib=None):
     if rc != 0:
         raise RuntimeError(f"attention_fwd launch failed with CUDA error {rc}")
     LAUNCHES[launch_key(hd)] += 1
+    LAUNCHES_BY_DTYPE[f"{launch_key(hd)}.{str(q.dtype).split('.')[-1]}"] += 1
     return out
 
 

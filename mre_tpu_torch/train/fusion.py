@@ -31,8 +31,12 @@ maps relation descriptions to relation embeddings through a small MLP over
 the frozen text embeddings (models/distill.py).
 
 Weights are the seeded port init, or carried from the JAX package with
-``interop.load_flax(trainer.model, params, spectral)``. Not ported:
-``compute_dtype`` (bf16 matmuls), the image cache and the mesh.
+``interop.load_flax(trainer.model, params, spectral)``.
+``compute_dtype="bfloat16"`` runs the M3AE transformers' Dense layers and
+the attention kernel in bfloat16 over float32 parameters; parameters, adam
+state and checkpoints stay float32. ``image_cache`` decodes every entity
+image once at construction (``MultimodalStore.precompute_image_cache``).
+The mesh is not ported.
 """
 
 from __future__ import annotations
@@ -115,6 +119,8 @@ class FusionConfig:
     epochs: int = 200
     seed: int = 192
     text_only: bool = False
+    compute_dtype: str = "float32"   # the M3AE transformers' dtype ("bfloat16")
+    image_cache: bool = False        # pre-decode every image once
     attention_impl: str = "auto"     # auto | kernel | torch
 
 
@@ -125,6 +131,10 @@ class FusionTrainer:
         self.table = table
         self.store = store
         self.cfg = cfg
+        if cfg.image_cache and not cfg.text_only:
+            secs = store.precompute_image_cache()
+            print(f"[fusion] image cache: {store.num_nodes} entities "
+                  f"pre-decoded in {secs:.1f}s", flush=True)
         model = UnifiedModel(
             text_vocab_size=store.vocab_size,
             num_relations=table.n_relations,
@@ -134,7 +144,7 @@ class FusionTrainer:
                 image_mask_ratio=cfg.image_mask_ratio,
                 text_mask_ratio=cfg.text_mask_ratio,
                 contrastive=cfg.contrastive_loss_weight > 0 and not cfg.text_only,
-                attention_impl=cfg.attention_impl)))
+                compute_dtype=cfg.compute_dtype, attention_impl=cfg.attention_impl)))
         self.model = init_weights(model, cfg.seed).to(self.device).eval()
         self.kg = DeviceKG.from_table(table, self.device)
 
@@ -348,7 +358,7 @@ class FusionTrainer:
         reps = []
         for i in range(0, n, batch_size):
             ids, ids_p = self._padded_ids(i, n, batch_size)
-            mm = self.store.generate_batch(ids_p, [])
+            mm = self.store.generate_batch(ids_p, [], train=False)
             patches = (self._put(extract_patches(mm["image"], self.cfg.patch_size))
                        if "image" in mm else None)
             cls_x, _ = m3ae.forward_representation(

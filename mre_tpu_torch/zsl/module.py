@@ -24,12 +24,14 @@ takes the unseen relation vectors from the distill predictor
 (``FusionTrainer.train_distill``) instead of the generator. ``save`` /
 ``load`` write the Extractor, the Discriminator (with its spectral vectors)
 and the generator (the fusion parameters) as flax-named checkpoints
-(core/checkpoint.py). ``mesh`` and a ``compute_dtype`` other than float32
-are not ported.
+(core/checkpoint.py). ``evaluate(compute_dtype="bfloat16")`` ranks with
+the L/R tables and a bfloat16 copy of the Extractor, as JAX does. ``mesh``
+is not ported.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 
@@ -44,7 +46,7 @@ from mre_tpu_torch.eval.zero_shot import evaluate_zero_shot, evaluate_zero_shot_
 from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.extractor import Discriminator, Extractor
 from mre_tpu_torch.models.initializers import init_weights
-from mre_tpu_torch.models.transformer import DropoutMasks
+from mre_tpu_torch.models.transformer import DropoutMasks, compute_dtype as torch_dtype
 from mre_tpu_torch.zsl.episodes import EpisodeSampler, SymbolTable, build_connections
 
 G_PARAM_KEYS = ("generate_fc_layer", "des_rel_map_layer1",
@@ -534,18 +536,24 @@ class ZSLModule:
         three give the same ranks up to float32 summation order.
         ``predict_unseen(rel_ids) → [len(rel_ids), D]`` (the distill
         predictor), if given, supplies each relation's vectors: one row
-        where the generator gives ``test_sample``."""
+        where the generator gives ``test_sample``.
+
+        ``compute_dtype="bfloat16"`` (zsl/module.py:629-650): the L/R tables
+        are computed in float32 and cast, every Extractor parameter is cast
+        (the LayerNorm's too) and the pair embeddings go back to float32
+        before ranking, on all three paths. The generator's text pass runs
+        in the fusion model's own dtype."""
         if eval_path not in EVAL_PATHS:
             raise ValueError(f"eval_path {eval_path!r} not in {EVAL_PATHS}")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded evaluation is not ported")
-        if compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype {compute_dtype!r}: the port "
-                                      "evaluates in float32 only")
+        cdt = torch_dtype(compute_dtype)
         test_candidates = loaders.load_candidates(self.data_path, mode)
         ex = self.extractor
         nbr = ex.encode_neighbors(self.symbol_table, self.connections, self.degrees)
         L, R = ex.precompute_pair_tables(self.symbol_table, nbr, self._entity_symbols())
+        if cdt != torch.float32:
+            L, R, ex = L.to(cdt), R.to(cdt), copy.deepcopy(ex).to(cdt)
 
         if predict_unseen is not None:
             def gen_rel_vecs(rel_name):

@@ -21,8 +21,10 @@ import pickle
 
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
+from flax.training import train_state
 
 from mre_tpu.cli import args as jargs
 from mre_tpu.cli import main as jmain
@@ -192,10 +194,29 @@ def test_read_options_defaults_equal_jax():
     assert t == j
 
 
-def test_unported_options_are_refused():
-    for extra in (["--compute_dtype", "bfloat16"], ["--pretrained_m3ae", "cc12m.pkl"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmain.build_pipeline(read_options(TINY + CPU + extra))
+def test_unported_options_are_refused(tmp_path, monkeypatch):
+    """Both options once refused now build a pipeline: ``--compute_dtype
+    bfloat16`` reaches the M3AE transformers (parameters float32), and
+    ``--pretrained_m3ae`` loads a pickled flax ``TrainState`` over the M3AE
+    tree; a compute dtype outside float32 / bfloat16 is refused."""
+    _dataset(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    fusion = tmain.build_pipeline(read_options(TINY + CPU + ["--compute_dtype", "bfloat16"]))[3]
+    m3ae = fusion.model.M3AEmodel
+    assert m3ae.encoder.Block_0.Attention_0.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in fusion.model.parameters())
+
+    params = module_to_flax(m3ae)[0]
+    params["cls_token"] = params["cls_token"] + 1.0
+    state = train_state.TrainState.create(apply_fn=None, params={"params": params},
+                                          tx=optax.adam(1e-3)).replace(tx=None)
+    with open("cc12m.pkl", "wb") as f:
+        pickle.dump({"state": state, "variant": {}}, f)
+    fusion = tmain.build_pipeline(read_options(TINY + CPU + ["--pretrained_m3ae", "cc12m.pkl"]))[3]
+    np.testing.assert_array_equal(fusion.model.M3AEmodel.cls_token.detach().numpy(),
+                                  params["cls_token"])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tmain.build_pipeline(read_options(TINY + CPU + ["--compute_dtype", "float16"]))
 
 
 def test_cli_needs_a_card_unless_told(tmp_path, monkeypatch):

@@ -110,7 +110,7 @@ def test_store_eval_batch_equals_jax(fixture_dirs):
     nodes = np.arange(len(data["e2id"]))[::-1]
     rels = np.arange(len(data["r2id"]))
     jb = js.generate_batch(nodes, rels, train=False)
-    tb = ts.generate_batch(nodes, rels)
+    tb = ts.generate_batch(nodes, rels, train=False)
     assert set(jb) == set(tb)
     for k in jb:
         assert jb[k].dtype == tb[k].dtype, k

@@ -134,9 +134,22 @@ def test_other_eval_paths_are_refused(slice_pair):
 @pytest.mark.parametrize("option", [dict(mesh=object()),
                                     dict(compute_dtype="bfloat16")])
 def test_unported_evaluate_options_are_refused(slice_pair, option):
+    """The mesh is still refused; ``compute_dtype="bfloat16"`` (ported)
+    ranks the same queries with a bfloat16 Extractor copy, leaving the
+    module's own parameters float32 (its ranks against JAX's:
+    tests/test_torch_port_options_bf16.py)."""
     _, _, tf, tz = slice_pair
-    with pytest.raises(NotImplementedError, match="not ported|float32 only"):
-        tz.evaluate(tf, verbose=False, **option)
+    if "mesh" in option:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tz.evaluate(tf, verbose=False, **option)
+        return
+    ref = tz.evaluate(tf, verbose=False, query_chunk=8, eval_path="rel_shared",
+                      return_ranks=True)
+    got = tz.evaluate(tf, verbose=False, query_chunk=8, eval_path="rel_shared",
+                      return_ranks=True, **option)
+    assert got["n"] == ref["n"] > 0 and got["ranks"].shape == ref["ranks"].shape
+    assert 0.0 < got["mrr"] <= 1.0
+    assert all(p.dtype == torch.float32 for p in tz.extractor.parameters())
 
 
 def test_entry_points_need_a_card_unless_told(slice_pair, monkeypatch):

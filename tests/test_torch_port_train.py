@@ -351,10 +351,18 @@ def test_adam_update_equals_optax():
 
 
 def test_nonzero_dropout_is_refused():
-    with pytest.raises(ValueError, match="dropout"):
-        Transformer(32, 1, 2, drop_path=0.1)
-    with pytest.raises(ValueError, match="dropout"):
-        tm3ae.M3AE(50, 8, 192, tm3ae.m3ae_config("tiny", dict(att_drop=0.1)))
+    """Nonzero rates build (ported); what is still refused is a
+    non-deterministic pass with nonzero rates and no mask source."""
+    x = torch.ones(2, 3, 32)
+    block = Transformer(32, 1, 2, drop_path=0.1)
+    assert block(x).shape == x.shape                      # deterministic by default
+    with pytest.raises(ValueError, match="dropout rates needs drop"):
+        block(x, deterministic=False)
+    model = tm3ae.M3AE(50, 8, 192, tm3ae.m3ae_config("tiny", dict(att_drop=0.1)))
+    assert model.encoder.Block_0.Attention_0.att_drop == 0.1
+    with pytest.raises(ValueError, match="dropout rates needs drop"):
+        model(None, torch.ones(2, 4, dtype=torch.int64), torch.zeros(2, 4),
+              text_ids_shuffle=torch.arange(4))
 
 
 def _ids(mask_row):
