@@ -93,7 +93,28 @@ Phases (each raises, and the script exits non-zero, on any failure):
    the CLI's ``main`` with ``--compute_dtype bfloat16``, one epoch, a
    checkpoint and a ZSL round (exact bf16 launches, finite ``zsl_mrr``).
    Every check of the phase runs and prints before its failures are raised;
-8. one JSON line of kernels (the float32 and the bfloat16 instantiations,
+8. the KGE toolkit (no attention kernel; its launches must stay 0), on
+   synthetic benchmarks at the published sizes of FB15K-237 (14,541
+   entities, 237 relations, 272,115 / 17,535 / 20,466 triples) and WN18RR
+   (40,943, 11, 86,835 / 3,034 / 3,134): (a) ``corrupt_batch`` on the card
+   equals the CPU's given the draws, tier-2 rows and truncation count
+   included, on a KG with a 200-tail row, and a FB15K-237-sized batch holds
+   no true triple and truncates nothing; (b) ``tools/train_kge.py``'s
+   ``main`` runs the transe_FB15K237 recipe at full width for two epochs on
+   the native sampler (8 threads): finite epoch losses, the second below the
+   first, ms per step split into host sampling and the step; then an epoch
+   on the device sampler; (c) rotate_WN18RR_adv through ``KGETrainer``
+   (dim 1024, 2000 × 64, Adam): its first step on a 200 × 64 cut agrees
+   with the CPU's (loss rtol 1e-4, parameters within 1e-4 of each table's
+   largest magnitude), then one epoch of 43 steps; (d) distmult_WN18RR, one
+   epoch (the ranking's matrix-product path); (e) filtered ranks of every
+   test triple on the card for (b)-(d), ms per triple, and the first 64
+   ranked on the CPU too (≥ 99% equal, none moved by more than 2, MRR
+   within 1e-3); (f) torch.profiler over five RotatE steps, five façade
+   TransE steps and one RotatE ranking chunk (device busy time, idle share,
+   top ops, the gather / index-backward share). Every check of the phase
+   runs and prints before its failures are raised;
+9. one JSON line of kernels (the float32 and the bfloat16 instantiations,
    each with its launches on every path), the card line, and the result
    line.
 
@@ -324,7 +345,7 @@ ATTENTION_BWD = "autograd::engine::evaluate_function: FusedAttentionBackward"
 GEMM = re.compile(r"gemm|gemv|splitKreduce", re.IGNORECASE)    # cuBLAS kernel names
 
 
-def profile_run(fn, tag: str, spans: tuple = ()) -> dict:
+def profile_run(fn, tag: str, spans: tuple = (), patterns: dict | None = None) -> dict:
     """One kernel-path run of ``fn`` under torch.profiler: wall time, device
     busy time (the sum over device-side events: kernels, copies, sets; CPU
     ops that only launch them, and the device rows of ``record_function``
@@ -332,8 +353,9 @@ def profile_run(fn, tag: str, spans: tuple = ()) -> dict:
     forward kernels' and the cuBLAS GEMMs' time and share, the device time
     of the attention backward (the plain recompute that autograd runs under
     the FusedAttentionBackward node), the device time of the kernels
-    launched inside each named ``record_function`` span of ``spans``, and
-    the top device events by time."""
+    launched inside each named ``record_function`` span of ``spans``, the
+    device time of the events whose names match each regex of ``patterns``,
+    and the top device events by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -356,7 +378,11 @@ def profile_run(fn, tag: str, spans: tuple = ()) -> dict:
     gemm_ms = sum(r[1] for r in rows if GEMM.search(r[0]))
     span_ms = {s: sum(e.device_time_total / 1e3 for e in events
                       if e.key == s and e.device_type == DeviceType.CPU) for s in spans}
-    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+    pattern_ms = {name: sum(r[1] for r in rows if rx.search(r[0]))
+                  for name, rx in (patterns or {}).items()}
+    out = dict(pattern_ms=pattern_ms,
+               pattern_share={name: ms / busy for name, ms in pattern_ms.items()},
+               wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / wall_ms,
                attention_ms=attn_ms, attention_share=attn_ms / busy,
                gemm_ms=gemm_ms, gemm_share=gemm_ms / busy,
@@ -369,7 +395,9 @@ def profile_run(fn, tag: str, spans: tuple = ()) -> dict:
         f"({out['gemm_share']:.3f})  attention backward {bwd_ms:.1f} ms "
         f"({out['attention_bwd_share']:.3f})"
         + "".join(f"  inside {s} {ms:.1f} ms ({out['span_share'][s]:.3f})"
-                  for s, ms in span_ms.items()))
+                  for s, ms in span_ms.items())
+        + "".join(f"  {n} {ms:.2f} ms ({out['pattern_share'][n]:.3f})"
+                  for n, ms in pattern_ms.items()))
     for r in out["top"]:
         log(f"[{tag}]   {r['ms']:10.2f} ms  x{r['count']:<5} {r['op']}")
     return out
@@ -1309,10 +1337,299 @@ def phase_bf16_cli(work_dir: str, cfg: dict = CLI, card: str = "no card") -> dic
     return dict(seconds=secs, steps=steps, launches=launches, expected=expect, zsl_mrr=mrr)
 
 
+# -- phase 8: the KGE toolkit ------------------------------------------------------
+
+# Synthetic benchmarks at the published sizes of FB15K-237 and WN18RR
+# (entities, relations, train / valid / test triples); the real files are
+# not in the repository. The recipes are tools/train_kge.py's at full width.
+KGE = dict(
+    fb=dict(n_ent=14541, n_rel=237, n_train=272115, n_valid=17535, n_test=20466, seed=0),
+    wn=dict(n_ent=40943, n_rel=11, n_train=86835, n_valid=3034, n_test=3134, seed=1),
+    transe_epochs=2,
+    rotate=dict(model="rotate", dim=1024, loss="sigmoid", adv_temperature=2.0, neg_ent=64,
+                batch_size=2000, bern=False, opt_method="adam", alpha=2e-5,
+                init_kwargs=dict(margin=6.0, epsilon=2.0)),
+    distmult=dict(model="distmult", dim=200, loss="softplus", regul_rate=1.0,
+                  opt_method="adagrad", alpha=0.5, neg_ent=25, bern=True),
+    cpu_batch=200,                 # the first RotatE step's cut for the CPU side
+    # test triples ranked on the CPU too (RotatE's dim-1024 broadcast scorer
+    # takes ~0.7 s per test triple on 8 CPU cores)
+    cpu_rank=dict(transe=64, rotate=16, distmult=64),
+    profile_steps=5, profile_rank=256,
+    sampling=dict(big=200, small=3000, batches=((256, 8), (2048, 8))),
+)
+# the first RotatE step, card against CPU: loss within rtol 1e-4, parameters
+# within 1e-4 of the largest magnitude of each table (the card's index
+# backward sums by atomic adds, in another order than the CPU's)
+KGE_STEP_RTOL = 1e-4
+INDEX_OPS = re.compile(r"index|gather|scatter", re.IGNORECASE)
+
+
+def phase_kge(work_dir: str, cfg: dict = KGE, card: str = "no card", device=None) -> dict:
+    """The KGE toolkit on the card: (a) sampling card vs CPU and a filtered
+    batch at FB15K-237 size; (b) the façade runner's transe_FB15K237 recipe
+    for two epochs on the native sampler, then an epoch on the device
+    sampler; (c) rotate_WN18RR_adv through KGETrainer, its first step held
+    against the CPU; (d) distmult_WN18RR; (e) link prediction of (b)-(d) on
+    the card, the first test triples ranked on the CPU too; (f) profiles.
+    Every check runs and prints before the failures are raised together."""
+    from mre_tpu_torch import openke as ok
+    from mre_tpu_torch.data.fixtures import write_openke_benchmark
+    from mre_tpu_torch.data.kg import DeviceKG
+    from mre_tpu_torch.openke.config import _predictors
+    from mre_tpu_torch.ops import ranking
+    from mre_tpu_torch.ops import sampling as S
+    from mre_tpu_torch.tools import train_kge
+    from mre_tpu_torch.train.kge import KGETrainer, KGETrainerConfig
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    gates = Gates("kge")
+    out, times = {}, {}
+    t_phase = time.perf_counter()
+    reset_launches()
+
+    # (a) sampling: the card's corrupt_batch equals the CPU's given the draws
+    rng = np.random.default_rng(0)
+    sc = cfg["sampling"]
+    big = np.stack([np.zeros(sc["big"], np.int64), np.zeros(sc["big"], np.int64),
+                    np.arange(1, sc["big"] + 1)], 1)
+    small = np.stack([rng.integers(1, sc["small"], sc["small"]), np.ones(sc["small"], np.int64),
+                      rng.integers(1, sc["small"], sc["small"])], 1)
+    tri = np.unique(np.concatenate([big, small]).astype(np.int32), axis=0)
+    table = TripleTable.build(tri, sc["small"], 2)
+    kg_c, kg_d = DeviceKG.from_table(table), DeviceKG.from_table(table, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    sampling_cmp = []
+    for B, n_neg in sc["batches"]:
+        h, r, t = torch.zeros(B, dtype=torch.int64), torch.zeros(B, dtype=torch.int64), \
+            torch.ones(B, dtype=torch.int64)
+        side_u = torch.rand((B, n_neg), generator=gen)
+        row_t, row_h = 0 * table.n_relations + 0, 1 * table.n_relations + 0   # (h, r), (t, r)
+        cnt_t = int(table.hr_offsets[row_t + 1] - table.hr_offsets[row_t])
+        cnt_h = int(table.tr_offsets[row_h + 1] - table.tr_offsets[row_h])
+        cnt = torch.where(side_u < 0.5, cnt_t, cnt_h)
+        u = S._randint_below(torch.clamp(table.n_entities - cnt, min=1), (B, n_neg), gen)
+        want = S.corrupt_batch(kg_c, h, r, t, n_neg, side_u=side_u, u=u)
+        got = S.corrupt_batch(kg_d, h.to(dev), r.to(dev), t.to(dev), n_neg,
+                              side_u=side_u.to(dev), u=u.to(dev))
+        same = all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   for f in ("neg_h", "neg_t", "neg_ent", "neg_side", "overflow_truncated"))
+        trunc = int(got.overflow_truncated)
+        sampling_cmp.append(dict(batch=B, n_neg=n_neg, equal=same, truncated=trunc,
+                                 truncated_cpu=int(want.overflow_truncated)))
+        log(f"[kge] (a) corrupt_batch {B}x{n_neg} on the big-row KG: card == CPU {same}, "
+            f"truncated {trunc} (CPU {int(want.overflow_truncated)})")
+        gates.check(same, f"corrupt_batch {B}x{n_neg} card != CPU")
+    gates.check(sampling_cmp[0]["truncated"] == 0 and sampling_cmp[-1]["truncated"] > 0,
+                f"truncation counts {[c['truncated'] for c in sampling_cmp]}: expected 0, then > 0")
+
+    t0 = time.perf_counter()
+    fb_dir, wn_dir = os.path.join(work_dir, "fb") + "/", os.path.join(work_dir, "wn") + "/"
+    write_openke_benchmark(fb_dir, **cfg["fb"])
+    write_openke_benchmark(wn_dir, **cfg["wn"])
+    fb, wn = ok.read_benchmark(fb_dir), ok.read_benchmark(wn_dir)
+    fb_train = TripleTable.build(fb["train"], fb["n_entities"], fb["n_relations"])
+    times["fixtures_s"] = time.perf_counter() - t0
+    fb_kg = DeviceKG.from_table(fb_train, device=dev)
+    B_fb = fb_train.n_triples // 100
+    nb = S.sample_training_batch(fb_kg, B_fb, 25, bern=True,
+                                 generator=torch.Generator(dev).manual_seed(3))
+    negs = [x.cpu().numpy().ravel() for x in (nb.neg_h, nb.r[:, None].expand_as(nb.neg_h),
+                                             nb.neg_t)]
+    n_true = int(fb_train.contains(*negs).sum())
+    fb_trunc = int(nb.overflow_truncated)
+    log(f"[kge] (a) FB15K-237-sized batch {B_fb}x25 on the card: {n_true} true negatives, "
+        f"truncated {fb_trunc}")
+    gates.check(n_true == 0, f"{n_true} negatives are true triples")
+    gates.check(fb_trunc == 0, f"{fb_trunc} draws truncated")
+    out["sampling"] = dict(cases=sampling_cmp, fb_batch=B_fb, fb_true_negatives=n_true,
+                           fb_truncated=fb_trunc)
+
+    # (b) the façade: tools/train_kge.py's main, transe_FB15K237, native sampler
+    t0 = time.perf_counter()
+    res = train_kge.main(["--recipe", "transe_FB15K237", "--in_path", fb_dir,
+                          "--train_times", str(cfg["transe_epochs"]), "--device", str(dev)])
+    times["transe_main_s"] = time.perf_counter() - t0
+    tr = res["trainer"]
+    losses = [e["loss"] for e in tr.epochs]
+
+    def split(e):
+        return dict(e, sample_ms=e["sample_s"] / e["steps"] * 1e3,
+                    step_ms=e["step_s"] / e["steps"] * 1e3)
+
+    epochs = [split(e) for e in tr.epochs]
+    transe = dict(epochs=epochs, metrics=list(res["metrics"]), tester_s=res["rank_s"])
+    log(f"[kge] (b) transe_FB15K237 (dim {res['model'].params['ent'].shape[1]}, batch "
+        f"{tr.data_loader.batch_size}x25, native sampler on 8 threads), per epoch: "
+        + "; ".join(f"loss {e['loss']:.3f} in {e['seconds']:.2f} s, host sampling "
+                    f"{e['sample_ms']:.3f} ms + step {e['step_ms']:.3f} ms per step"
+                    for e in epochs)
+        + f"; Tester {res['rank_s']:.2f} s, filtered MRR {res['metrics'][0]:.5f} ({card})")
+    gates.check(len(losses) == cfg["transe_epochs"] and all(map(math.isfinite, losses)),
+                f"epoch losses {losses}")
+    gates.check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+
+    model = res["model"]
+    loader = ok.TrainDataLoader(in_path=fb_dir, nbatches=100, bern_flag=1, filter_flag=1,
+                                neg_ent=25, backend="torch", seed=0, device=dev)
+    strategy = ok.NegativeSampling(model=model, loss=ok.MarginLoss(margin=5.0),
+                                   batch_size=loader.get_batch_size())
+    tr_t = ok.Trainer(model=strategy, data_loader=loader, train_times=1, alpha=1.0,
+                      opt_method="sgd", log_every=0, device=dev)
+    tr_t.run()
+    e = transe["torch_backend"] = split(tr_t.epochs[0])
+    log(f"[kge] (b) one epoch on the device sampler (backend='torch'): loss {e['loss']:.3f} "
+        f"in {e['seconds']:.2f} s; sampling {e['sample_ms']:.3f} ms + step {e['step_ms']:.3f} "
+        f"ms per step")
+    gates.check(math.isfinite(e["loss"]), "torch-backend epoch loss not finite")
+    out["transe"] = transe
+
+    # (c) rotate_WN18RR_adv through KGETrainer
+    wn_train = TripleTable.build(wn["train"], wn["n_entities"], wn["n_relations"])
+    rot_cfg = dict(cfg["rotate"], nbatches=wn_train.n_triples // cfg["rotate"]["batch_size"])
+    t0 = time.perf_counter()
+    rot = KGETrainer(wn_train, KGETrainerConfig(**rot_cfg), device=dev)
+    rot_cpu = KGETrainer(wn_train, KGETrainerConfig(**rot_cfg), device=cpu)
+    times["rotate_init_s"] = time.perf_counter() - t0
+    cut = cfg["cpu_batch"]
+    full = rot.sample()
+    batch = S.NegativeBatch(*(x[:cut] for x in full[:7]), full.overflow_truncated)
+    loss_d = float(rot.step_with_batch(batch))
+    loss_c = float(rot_cpu.step_with_batch(S.NegativeBatch(*(x.cpu() for x in batch))))
+    step_err = {}
+    for k, v in rot_cpu.params.items():
+        ref = v.detach()
+        step_err[k] = float((rot.params[k].detach().cpu() - ref).abs().max()
+                            / max(float(ref.abs().max()), 1e-30))
+    loss_rel = abs(loss_d - loss_c) / max(abs(loss_c), 1e-30)
+    log(f"[kge] (c) rotate first step ({cut}x{rot_cfg['neg_ent']} cut): loss card {loss_d:.7f} "
+        f"CPU {loss_c:.7f} (rel {loss_rel:.2e}); parameters max |d| / max |x| {step_err}")
+    gates.check(loss_rel <= KGE_STEP_RTOL, f"rotate first-step loss rel {loss_rel}")
+    gates.check(all(e <= KGE_STEP_RTOL for e in step_err.values()),
+                f"rotate first-step parameters {step_err}")
+    del rot_cpu
+    sync()
+    t0 = time.perf_counter()
+    stats = rot.train_epoch()
+    rot_loss = float(stats["loss"])
+    rot_s = time.perf_counter() - t0
+    rot_info = dict(steps=rot_cfg["nbatches"], epoch_loss=rot_loss,
+                    truncated=int(stats["overflow_truncated"]),
+                    ms_per_step=rot_s / rot_cfg["nbatches"] * 1e3,
+                    first_step=dict(loss_card=loss_d, loss_cpu=loss_c, loss_rel=loss_rel,
+                                    param_rel=step_err))
+    log(f"[kge] (c) rotate epoch: {rot_cfg['nbatches']} steps of {rot_cfg['batch_size']}x"
+        f"{rot_cfg['neg_ent']} in {rot_s:.2f} s ({rot_info['ms_per_step']:.2f} ms/step), "
+        f"loss {rot_loss:.4f}, truncated {rot_info['truncated']} ({card})")
+    gates.check(math.isfinite(rot_loss) and rot_info["truncated"] == 0,
+                f"rotate epoch loss {rot_loss}, truncated {rot_info['truncated']}")
+    out["rotate"] = rot_info
+
+    # (d) distmult_WN18RR through KGETrainer
+    dm_cfg = dict(cfg["distmult"], batch_size=wn_train.n_triples // 100, nbatches=100)
+    dm = KGETrainer(wn_train, KGETrainerConfig(**dm_cfg), device=dev)
+    sync()
+    t0 = time.perf_counter()
+    dm_loss = float(dm.train_epoch()["loss"])
+    dm_s = time.perf_counter() - t0
+    out["distmult"] = dict(steps=100, epoch_loss=dm_loss, ms_per_step=dm_s / 100 * 1e3)
+    log(f"[kge] (d) distmult epoch: 100 steps of {dm_cfg['batch_size']}x25 in {dm_s:.2f} s "
+        f"({dm_s * 10:.2f} ms/step), loss {dm_loss:.4f}")
+    gates.check(math.isfinite(dm_loss), f"distmult epoch loss {dm_loss}")
+
+    # (e) link prediction on the card; the first test triples on the CPU too
+    def union_table(b):
+        return TripleTable.build(np.concatenate([b["train"], b["valid"], b["test"]]),
+                                 b["n_entities"], b["n_relations"])
+
+    fb_union, wn_union = union_table(fb), union_table(wn)
+    cases = {"transe": (lambda kg: _predictors(model, kg), model.params, fb, fb_union),
+             "rotate": (rot.predictors, rot.params, wn, wn_union),
+             "distmult": (dm.predictors, dm.params, wn, wn_union)}
+    ranks = {}
+    for name, (predictors, params, b, union) in cases.items():
+        kg = DeviceKG.from_table(union, device=dev)
+        tails, heads = predictors(kg)
+        sync()
+        t0 = time.perf_counter()
+        card_ranks = ranking.rank_arrays(tails, heads, params, kg, b["test"])
+        secs = time.perf_counter() - t0
+        n_cpu = cfg["cpu_rank"][name]
+        kg_cpu = DeviceKG.from_table(union)
+        tails_c, heads_c = predictors(kg_cpu)
+        params_c = {k: v.detach().cpu() for k, v in params.items()}
+        t0 = time.perf_counter()
+        cpu_ranks = ranking.rank_arrays(tails_c, heads_c, params_c, kg_cpu, b["test"][:n_cpu])
+        cpu_s = time.perf_counter() - t0
+        a = np.concatenate([card_ranks[k][:n_cpu] for k in sorted(cpu_ranks)])
+        c = np.concatenate([cpu_ranks[k] for k in sorted(cpu_ranks)])
+        equal, diff = rank_agreement(a, c)
+        filt = np.concatenate([card_ranks["tail_filter"], card_ranks["head_filter"]])
+        mrr_card = float(np.mean(1.0 / np.concatenate(
+            [card_ranks["tail_filter"][:n_cpu], card_ranks["head_filter"][:n_cpu]])))
+        mrr_cpu = float(np.mean(1.0 / np.concatenate(
+            [cpu_ranks["tail_filter"], cpu_ranks["head_filter"]])))
+        ranks[name] = dict(n_test=len(b["test"]), seconds=secs,
+                           ms_per_triple=secs / len(b["test"]) * 1e3,
+                           filtered_mrr=float(np.mean(1.0 / filt)), cpu_triples=n_cpu,
+                           cpu_seconds=cpu_s, equal_share=equal, max_diff=diff,
+                           mrr_card=mrr_card, mrr_cpu=mrr_cpu)
+        log(f"[kge] (e) {name}: {len(b['test'])} test triples ranked on the card in "
+            f"{secs:.2f} s ({ranks[name]['ms_per_triple']:.4f} ms/triple), filtered MRR "
+            f"{ranks[name]['filtered_mrr']:.5f}; first {n_cpu} on the CPU ({cpu_s:.1f} s): "
+            f"{equal:.4f} of {len(a)} ranks equal, max |d| {diff}, MRR card {mrr_card:.6f} "
+            f"CPU {mrr_cpu:.6f}")
+        gates.check(equal >= RANK_EQUAL_MIN and diff <= RANK_MAX_DIFF,
+                    f"{name} ranks card vs CPU: {equal} equal, max |d| {diff}")
+        gates.check(abs(mrr_card - mrr_cpu) <= MRR_ATOL,
+                    f"{name} MRR card {mrr_card} vs CPU {mrr_cpu}")
+    out["ranking"] = ranks
+
+    # (f) profiles: RotatE steps, façade TransE steps (native sampling
+    # included), one RotatE ranking chunk
+    prof = None
+    if on_card:
+        n = cfg["profile_steps"]
+        native_loader = tr.data_loader
+        rank_kg = DeviceKG.from_table(wn_union, device=dev)
+        r_tails, r_heads = rot.predictors(rank_kg)
+        chunk = wn["test"][:cfg["profile_rank"]]
+
+        def rotate_steps():
+            for _ in range(n):
+                rot.train_step()
+
+        def transe_steps():
+            for _ in range(n):
+                tr.step(native_loader.sample())
+
+        def rank_chunk():
+            ranking.rank_arrays(r_tails, r_heads, rot.params, rank_kg, chunk,
+                                chunk=cfg["profile_rank"])
+
+        prof = {}
+        for tag, fn in (("rotate_steps", rotate_steps), ("transe_steps", transe_steps),
+                        ("rotate_rank_chunk", rank_chunk)):
+            fn()                                            # warm
+            prof[tag] = profile_run(fn, f"kge-{tag}", patterns={"gather/index": INDEX_OPS})
+    out["profile"] = prof
+    launches = dict(attention.LAUNCHES_BY_DTYPE)
+    out["launches"] = launches
+    gates.check(not any(launches.values()), f"attention kernels launched in phase 8: {launches}")
+    times["phase_s"] = time.perf_counter() - t_phase
+    out["times"] = times
+    log(f"[kge] phase 8 in {times['phase_s']:.1f} s ({card})")
+    gates.close()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     resolve_device()                       # TF32 off before any comparison
     card = card_line()
     log(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1334,34 +1651,51 @@ def main() -> int:
     if any(r["hmma"] == 0 for r in build.values()):
         raise AssertionError(f"an instantiation has no tensor-core instruction: {build}")
 
-    recs = phase_kernels()
+    phase_s = {"build": time.perf_counter() - t_start}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            log(f"[time] {name}: {phase_s[name]:.1f} s")
+
+    recs = timed("2_kernels", phase_kernels)
     with tempfile.TemporaryDirectory() as tmp:
-        slice_info, served = phase_slice(os.path.join(tmp, "serve"))
-        train_info, trained = phase_train(os.path.join(tmp, "train"))
-        zsl_info = phase_zsl(served, card=card)
-        cli_info = phase_cli(os.path.join(tmp, "cli"), card=card)
+        slice_info, served = timed("3_serving", phase_slice, os.path.join(tmp, "serve"))
+        train_info, trained = timed("4_training", phase_train, os.path.join(tmp, "train"))
+        zsl_info = timed("5_zsl", phase_zsl, served, card=card)
+        cli_info = timed("6_cli", phase_cli, os.path.join(tmp, "cli"), card=card)
         f32_round = dict(slice_info["times"], mrr=slice_info["metrics"]["mrr"])
-        serve16_info, bf16 = phase_bf16_serving(served, f32_round, card=card)
-        train16_info = phase_bf16_train(trained, train_info["step_ms"], card=card)
-        gan16_info = phase_bf16_gan(served, bf16, epochs=GAN_TURN_EPOCHS, card=card)
-        cli16_info = phase_bf16_cli(os.path.join(tmp, "cli_bf16"), card=card)
+        serve16_info, bf16 = timed("7_bf16_serving", phase_bf16_serving, served, f32_round,
+                                   card=card)
+        train16_info = timed("7_bf16_train", phase_bf16_train, trained, train_info["step_ms"],
+                             card=card)
+        gan16_info = timed("7_bf16_gan", phase_bf16_gan, served, bf16, epochs=GAN_TURN_EPOCHS,
+                           card=card)
+        cli16_info = timed("7_bf16_cli", phase_bf16_cli, os.path.join(tmp, "cli_bf16"),
+                           card=card)
+        kge_info = timed("8_kge", phase_kge, os.path.join(tmp, "kge"), card=card)
 
     def entry(name, replaces, case, dtype="float32"):
         """One kernel's line: its times at ``case`` in ``dtype``, its
         launches on each path of this run (phases 3-6 in float32, phase 7 in
-        bfloat16)."""
+        bfloat16, phase 8 in either)."""
         rec = next(r for r in recs if r["case"] == case and r["dtype"] == dtype)
         if dtype == "float32":
             by_path = {"serving": slice_info["launches"][name],
                        "training": train_info["launches"][name],
                        "zsl_training": zsl_info["launches"][name],
-                       "cli": cli_info["launches"][name]}
+                       "cli": cli_info["launches"][name],
+                       "kge": kge_info["launches"][f"{name}.float32"]}
         else:
             key = f"{name}.{dtype}"
             by_path = {"serving": serve16_info["launches"].get(key, 0),
                        "training": train16_info["launches"].get(key, 0),
                        "zsl_training": gan16_info["launches"].get(key, 0),
-                       "cli": cli16_info["launches"].get(key, 0)}
+                       "cli": cli16_info["launches"].get(key, 0),
+                       "kge": kge_info["launches"][key]}
             name = f"{name}_bf16"
         return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -1384,7 +1718,8 @@ def main() -> int:
                        build={f"hd{hd}_{dt}": r for (hd, dt), r in build.items()},
                        slice=slice_info, train=train_info, zsl=zsl_info, cli=cli_info,
                        bf16_serving=serve16_info, bf16_train=train16_info,
-                       bf16_gan=gan16_info, bf16_cli=cli16_info,
+                       bf16_gan=gan16_info, bf16_cli=cli16_info, kge=kge_info,
+                       phase_s=phase_s,
                        kernels=kernels["kernels"]),
                   f, indent=1)
     log(json.dumps(kernels))

@@ -2,8 +2,8 @@
 
 The package keeps the JAX package's layout (``cli/``, ``core/``,
 ``ops/``, ``models/``, ``data/``, ``eval/``, ``zsl/``, ``train/``,
-``utils/``) so that every module's counterpart is found under the same
-name. It imports torch and numpy only. Ported so far:
+``utils/``, ``openke/``) so that every module's counterpart is found under
+the same name. It imports torch and numpy only. Ported so far:
 
 * the entry point: ``python -m mre_tpu_torch.cli.main`` in train and
   evaluate modes, with checkpoints (``core/checkpoint.py``) and the distill
@@ -13,7 +13,14 @@ name. It imports torch and numpy only. Ported so far:
   (``rel_shared``, ``head_shared`` or ``factored``);
 * fusion training: FusionTrainer.train_step / train_epoch;
 * ZSL training: ZSLModule.pretrain_extractor → compute_centroids →
-  train_gan (WGAN-GP on the fusion model's generator head).
+  train_gan (WGAN-GP on the fusion model's generator head);
+* the KGE toolkit: device sampling (``ops/sampling.py``), ranking losses,
+  filtered link prediction (``ops/ranking.py``), the eleven OpenKE models
+  (``models/kge.py``), ``train/kge.py::KGETrainer``, the OpenKE façade
+  (``openke/``) with its native sampler (``csrc/sampler.cpp``, built by g++
+  at first use), and the runner ``python -m mre_tpu_torch.tools.train_kge``.
+
+The mesh (``parallel/mesh.py``) is not ported yet.
 
 Attention on CUDA tensors runs a hand-written sm_90a kernel
 (``csrc/attention_fwd.cu``, bound in ``ops/attention.py``).

@@ -1,11 +1,16 @@
-"""Synthetic ZSL dataset writer (port of mre_tpu/data/fixtures.py::write_zsl_dataset).
+"""Synthetic dataset writers (port of mre_tpu/data/fixtures.py).
 
-Same files, same schemas and the same rng stream as the JAX package's
-writer, so a seed gives the same JSON and text files. Entity images are
-written by the port's own PNG encoder (``data/images.py``): their bytes
-differ from PIL's, their pixels are the same.
+Same files, same schemas and the same rng streams as the JAX package's
+writers, so a seed gives the same files: the OpenKE benchmark byte for
+byte; of a ZSL dataset the JSON and text files, while entity images are
+written by the port's own PNG encoder (``data/images.py``), whose bytes
+differ from PIL's and whose pixels are the same.
 
-Schemas (with their reference readers): ``entity2ids_zsl.json``,
+Schemas (with their reference readers):
+
+* OpenKE benchmark dirs: ``{train,valid,test}2id.txt``, ``entity2id.txt``,
+  ``relation2id.txt``, ``type_constrain.txt`` (base/Reader.h:52-317);
+* ZSL dataset dirs: ``entity2ids_zsl.json``,
 ``relation2ids.json``, ``{train,test}_tasks_zsl.json``,
 ``rel_description_zsl``, ``rel2candidates_all.json``, ``e1rel_e2_all.json``,
 ``MultiModalInfo_zsl.pkl``, ``{mode}_candidates.json``
@@ -34,6 +39,42 @@ def _sentence(rng: np.random.Generator, n: int) -> str:
 def _png_bytes(rng: np.random.Generator, size: int = 16) -> bytes:
     arr = rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
     return encode_png(arr)
+
+
+def random_triples(rng: np.random.Generator, n_ent, n_rel, n_tri) -> np.ndarray:
+    tri = np.stack([rng.integers(0, n_ent, n_tri), rng.integers(0, n_rel, n_tri),
+                    rng.integers(0, n_ent, n_tri)], 1)
+    return np.unique(tri, axis=0).astype(np.int64)
+
+
+def write_openke_benchmark(path: str, n_ent=60, n_rel=8, n_train=400,
+                           n_valid=40, n_test=40, seed=0, with_types=True):
+    """Write an OpenKE-format benchmark directory; returns the splits by
+    file name, as [n, 3] (h, r, t) arrays."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    tri = random_triples(rng, n_ent, n_rel, n_train + n_valid + n_test + 50)
+    rng.shuffle(tri)
+    splits = {"train2id.txt": tri[:n_train],
+              "valid2id.txt": tri[n_train:n_train + n_valid],
+              "test2id.txt": tri[n_train + n_valid:n_train + n_valid + n_test]}
+    for name, rows in splits.items():
+        with open(os.path.join(path, name), "w") as f:
+            f.write(f"{len(rows)}\n")
+            # file column order: head tail rel
+            f.write("".join(f"{h} {t} {r}\n" for h, r, t in rows.tolist()))
+    for name, n, kind in (("entity2id.txt", n_ent, "ent"), ("relation2id.txt", n_rel, "rel")):
+        with open(os.path.join(path, name), "w") as f:
+            f.write(f"{n}\n" + "".join(f"/{kind}/{i}\t{i}\n" for i in range(n)))
+    if with_types:
+        # per relation: a line of observed head candidates, then of tails
+        with open(os.path.join(path, "type_constrain.txt"), "w") as f:
+            f.write(f"{n_rel}\n")
+            for r in range(n_rel):
+                mask = tri[:, 1] == r
+                for ids in (np.unique(tri[mask, 0]), np.unique(tri[mask, 2])):
+                    f.write(f"{r}\t{len(ids)}\t" + "\t".join(map(str, ids)) + "\n")
+    return splits
 
 
 def write_zsl_dataset(path: str, n_ent=80, n_rel=12, n_unseen=3,

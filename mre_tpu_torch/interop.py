@@ -12,6 +12,12 @@ the flax names, so each flax leaf maps to one ``state_dict`` key:
 * the ``"spectral"`` collection (``u``, ``v`` of each SNDense) → buffers.
 
 Both directions copy values exactly, so flax → torch → flax is bitwise.
+
+The KGE toolkit's parameters are a flat dict under the JAX package's keys
+(``ent``, ``rel``, ``norm``, ``mat``, ``ent_p``, ``rel_p``, ``ent_re`` /
+``ent_im`` / ``rel_re`` / ``rel_im``, ``rel_inv``, ``margin``,
+``rel_range``), the same in both packages: ``kge_from_jax`` and
+``kge_to_jax`` carry them across, value for value.
 """
 
 from __future__ import annotations
@@ -83,3 +89,23 @@ def module_to_flax(model: nn.Module) -> tuple[dict, dict]:
                 name, arr = "kernel", np.ascontiguousarray(arr.T)
         _insert(params, path + [name], arr)
     return params, spectral
+
+
+def kge_from_jax(params: dict, device: str | torch.device = "cpu") -> dict:
+    """The JAX package's KGE parameter dict (arrays) → the port's (float32
+    tensors on ``device``, copies, under the same keys)."""
+    out = {}
+    for k, v in params.items():
+        arr = np.asarray(v)
+        if arr.dtype != np.float32:
+            raise TypeError(f"KGE parameter {k!r} is {arr.dtype}, not float32")
+        out[k] = torch.tensor(arr, device=device)
+    return out
+
+
+def kge_to_jax(params) -> dict:
+    """The port's KGE parameters (a dict of tensors, or a ``models.kge.Params``
+    module such as a façade model) → numpy arrays under the same keys."""
+    if isinstance(params, nn.Module):
+        params = params.tree()
+    return {k: v.detach().to("cpu", copy=True).numpy() for k, v in params.items()}

@@ -1,17 +1,57 @@
-"""Reconstruction and contrastive losses (port of mre_tpu/ops/losses.py:66-147).
+"""Ranking, reconstruction and contrastive losses (port of
+mre_tpu/ops/losses.py).
 
+* margin / sigmoid / softplus ranking losses of the KGE toolkit, each with
+  optional self-adversarial negative weights (reference: module/loss.py:5-53
+  and OpenKE/openke/module/loss/*.py); ``p_score`` is [B, 1] (or [B]) and
+  ``n_score`` [B, n_neg];
 * masked patch MSE and masked token cross-entropy + accuracy for the M3AE
   reconstruction objective (reference: module/model.py:164-195);
 * bidirectional InfoNCE between mean image / text tokens, temperature 0.05
   (reference: module/model.py:578-597).
-
-The ranking losses (losses.py:25-59) belong to the KGE toolkit and come
-with it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def margin_loss(p_score, n_score, margin: float = 6.0, adv_temperature=None):
+    p = p_score.reshape(p_score.shape[0], -1)
+    n = n_score.reshape(n_score.shape[0], -1)
+    diff = torch.clamp(p - n, min=-margin)
+    if adv_temperature is not None:
+        w = torch.softmax(-n * adv_temperature, dim=-1).detach()
+        return (w * diff).sum(dim=-1).mean() + margin
+    return diff.mean() + margin
+
+
+def sigmoid_loss(p_score, n_score, adv_temperature=None):
+    p = p_score.reshape(p_score.shape[0], -1)
+    n = n_score.reshape(n_score.shape[0], -1)
+    pos = F.logsigmoid(p).mean()
+    if adv_temperature is not None:
+        w = torch.softmax(n * adv_temperature, dim=-1).detach()
+        neg = (w * F.logsigmoid(-n)).sum(dim=-1).mean()
+    else:
+        neg = F.logsigmoid(-n).mean()
+    return -(pos + neg) / 2
+
+
+def softplus_loss(p_score, n_score, adv_temperature=None):
+    p = p_score.reshape(p_score.shape[0], -1)
+    n = n_score.reshape(n_score.shape[0], -1)
+    pos = F.softplus(-p).mean()
+    if adv_temperature is not None:
+        w = torch.softmax(n * adv_temperature, dim=-1).detach()
+        neg = (w * F.softplus(n)).sum(dim=-1).mean()
+    else:
+        neg = F.softplus(n).mean()
+    return (pos + neg) / 2
+
+
+LOSSES = {"margin": margin_loss, "sigmoid": sigmoid_loss, "softplus": softplus_loss}
 
 
 def patch_mse_loss(patch_output, patch_target, valid=None):
