@@ -114,9 +114,29 @@ Phases (each raises, and the script exits non-zero, on any failure):
    TransE steps and one RotatE ranking chunk (device busy time, idle share,
    top ops, the gather / index-backward share). Every check of the phase
    runs and prints before its failures are raised;
-9. one JSON line of kernels (the float32 and the bfloat16 instantiations,
-   each with its launches on every path), the card line, and the result
-   line.
+9. the mesh (``mre_tpu_torch/parallel/mesh.py``; ~90 s):
+   ``tools/dryrun_multichip.run_checks`` at full width on a 1-rank NCCL
+   world and a larger one: one NCCL rank per card on a machine with two
+   cards or more, else a 2-rank gloo world of CUDA tensors on the one card
+   (NCCL refuses two ranks on one card); spawned after the kernel build, on
+   a 512-entity serving fixture: three data-parallel fusion steps of phase
+   4's config
+   (parameters within 5e-4·scale + 1e-5 and adam's first moment within 1e-4
+   of each leaf's largest, across the two worlds; exactly 3 × depth and
+   dec_depth launches per rank and step; the train state saved under the
+   mesh by rank 0, restored, two more steps bitwise equal to the live
+   ones), the entity sweep with the FFNs tensor parallel on world/2 × 2 (rtol
+   2e-4, atol 2e-5 of the replicated sweep), rel_shared ranks with the chunks over ``data`` (equal), three D/G
+   iterations at the ZSLConfig defaults with the GAN batch over ``data``
+   (rtol 2e-4), a rotate_WN18RR_adv step on a 200 × 64 cut data parallel
+   (loss rtol 1e-4) and on world/2 × 2 with the entity rows over ``model``
+   (the ranks of 64 test triples equal to the replicated run's); step,
+   all-reduce (the 1-rank world's over its own one-rank NCCL group: its
+   step has no collective), sweep, GAN and ranking times per world. Every check of the
+   phase runs and prints before its failures are raised;
+10. one JSON line of kernels (the float32 and the bfloat16 instantiations,
+   each with its launches on every path, the mesh's per rank), the card
+   line, and the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -1625,6 +1645,154 @@ def phase_kge(work_dir: str, cfg: dict = KGE, card: str = "no card", device=None
     return out
 
 
+# the mesh (phase 9): tools/dryrun_multichip's checks at full width, on a
+# 1-rank NCCL world and a larger one (``mesh_world``), all on one serving
+# fixture of 512 entities (one sweep batch of 512): the fusion step at phase 4's config
+# (M3AE-small, 12 seeds × 4 edges: 60 nodes), the tensor-parallel sweep,
+# rel_shared and the GAN loop (ZSLConfig defaults); RotatE at
+# rotate_WN18RR_adv's width on a WN18RR-sized table, a 200 × 64 cut of its
+# batch.
+MESH = dict(
+    serve=dict(SLICE, n_ent=512),
+    model=dict(model_type=TRAIN["model_type"], patch_size=TRAIN["patch_size"], seed=192),
+    pipe=dict(image_size=TRAIN["image_size"]),
+    depth=TRAIN["depth"], dec_depth=TRAIN["dec_depth"],
+    fusion=dict(steps=3, resume=2),
+    tp=dict(batch_size=512, n_model=2),
+    zsl=dict(cfg=dict(emb_dim=200, noise_dim=15, test_sample=20, max_neighbor=50),
+             iters=3, query_chunk=64, sweep_batch=512),
+    kge=dict(n_ent=40943, n_rel=11, n_train=86835, seed=1, cut=200, n_test=64, test_seed=5,
+             rotate=KGE["rotate"]),
+)
+MESH_KGE_RTOL = 1e-4
+
+
+def mesh_world(device: str) -> tuple[int, str]:
+    """The larger world of phase 9 and its backend: one NCCL rank per card
+    where there are two cards or more, else two gloo ranks sharing the one
+    card (NCCL refuses two ranks on one card), or two on the CPU."""
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    return (cards, "nccl") if cards >= 2 else (2, "gloo")
+
+
+def phase_mesh(work_dir: str, cfg: dict = MESH, card: str = "no card",
+               device: str = "cuda") -> dict:
+    """The parallel layer (``mre_tpu_torch/parallel/mesh.py``) through
+    ``tools/dryrun_multichip.run_checks`` on a 1-rank NCCL world and a
+    larger one (``mesh_world``): the data-parallel fusion step (three steps,
+    parameters within 5e-4·scale + 1e-5 and adam's first moment within 1e-4
+    of the 1-rank run's, exactly 3 × depth + dec_depth launches per rank and
+    step, a bitwise resume from a mesh checkpoint after two more steps), the
+    tensor-parallel entity sweep on world/2 × 2 (rtol 2e-4, atol 2e-5), rel_shared
+    ranks (equal), three D/G iterations (rtol 2e-4), a RotatE step data
+    parallel (loss rtol 1e-4) and on world/2 × 2 with the entity rows over
+    ``model`` (ranks of 64 test triples equal). Every check prints before
+    the failures are raised together."""
+    from mre_tpu_torch.tools import dryrun_multichip as dry
+
+    world, backend = mesh_world(device)
+    gates = Gates("mesh")
+    t_phase = time.perf_counter()
+    serve = cfg["serve"]
+    serve_dir = os.path.join(work_dir, "serve")
+    write_zsl_dataset(serve_dir, n_ent=serve["n_ent"], n_rel=serve["n_rel"],
+                      n_unseen=serve["n_unseen"], triples_per_rel=serve["triples_per_rel"],
+                      n_candidates=serve["n_candidates"], image_size=serve["image_px"], seed=0)
+    model, pipe = cfg["model"], cfg["pipe"]
+    rot = dict(cfg["kge"]["rotate"], batch_size=cfg["kge"]["cut"])
+    table = {k: cfg["kge"][k] for k in ("n_ent", "n_rel", "n_train", "seed")}
+    run_cfg = dict(
+        setup=dict(path=serve_dir, pipe=pipe, fusion=model),
+        tp=cfg["tp"], zsl=cfg["zsl"],
+        fusion=cfg["fusion"],
+        kge_cases=[dict(table, n_model=1, cfg=rot),
+                   dict(table, n_model=2, cfg=rot, n_test=cfg["kge"]["n_test"],
+                        test_seed=cfg["kge"]["test_seed"], chunk=cfg["kge"]["n_test"])])
+    # a CPU rehearsal has no NCCL: gloo for both
+    t0 = time.perf_counter()
+    one, two = dry.run_worlds(run_cfg, world, device, backend=backend,
+                              single_backend="nccl" if device == "cuda" else "gloo",
+                              threads=(os.cpu_count() or 2,
+                                       max(1, (os.cpu_count() or 2) // world)))
+    log(f"[mesh] worlds 1 ({one['backend']}) and {world} ({two[0]['backend']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    worlds = {1: [one], world: two}
+    for holds, line in dry.compare(two[0], one):
+        log(f"[mesh] {line}")
+        gates.check(holds, line)
+    for line in dry.ranks_agree(two):
+        gates.check(False, f"ranks disagree: {line}")
+
+    m3ae_depth, dec_depth = cfg["depth"], cfg["dec_depth"]
+    on_card = device == "cuda"
+    per_step = {"attention_fwd": on_card * 3 * m3ae_depth,
+                "attention_fwd_packed": on_card * dec_depth}
+    n_unseen = serve["n_unseen"]
+    want = {"fusion_step": per_step,
+            "tp": {"attention_fwd": on_card * m3ae_depth, "attention_fwd_packed": 0},
+            "rel_shared": {"attention_fwd": on_card * m3ae_depth * n_unseen,
+                           "attention_fwd_packed": 0},
+            "gan": {"attention_fwd": on_card * 2 * m3ae_depth * cfg["zsl"]["iters"],
+                    "attention_fwd_packed": 0}}
+    by_rank = {}
+    for res in [one] + two:
+        label = f"world{res['world']}_rank{res['rank']}"
+        got = {"tp": res["tp"]["launches"], "rel_shared": res["zsl"]["eval_launches"],
+               "gan": res["zsl"]["gan_launches"]}
+        for i, step in enumerate(res["fusion"]["launches"]):
+            gates.check(step == per_step, f"{label} fusion step {i} launches {step}, "
+                                          f"expected {per_step}")
+        for k, v in got.items():
+            gates.check(v == want[k], f"{label} {k} launches {v}, expected {want[k]}")
+        steps = res["fusion"]["launches"]
+        by_rank[label] = {k: sum(s[k] for s in steps) + sum(g[k] for g in got.values())
+                          for k in per_step}
+        log(f"[mesh] {label} ({res['backend']}, {res['device']}): launches {by_rank[label]}; "
+            f"step ms {[round(x, 1) for x in res['fusion']['step_ms']]}, all-reduce ms "
+            f"{[round(x, 1) for x in res['fusion']['allreduce_ms']]} over "
+            f"{res['fusion']['grad_floats']} floats; TP sweep {res['tp']['ms']:.1f} ms on "
+            f"{res['tp']['mesh']}; GAN {res['zsl']['gan_ms']:.1f} ms per D+G over "
+            f"{res['zsl']['rows']} rows; resume checkpoint {res['fusion']['resume']['bytes']} "
+            f"bytes saved in {res['fusion']['resume']['save_s']:.2f} s; sections s "
+            f"{ {k: round(v, 1) for k, v in res['section_s'].items()} }")
+        gates.check(all(np.isfinite(v) for i in res["fusion"]["infos"] for v in i.values()),
+                    f"{label} non-finite fusion terms")
+    rd, rd1 = two[0]["kge_cases"][0], one["kge_cases"][0]
+    rel = abs(rd["losses"][0] - rd1["losses"][0]) / abs(rd1["losses"][0])
+    log(f"[mesh] rotate dp step ({cfg['kge']['cut']}x{rot['neg_ent']}, mesh {rd['mesh']}): "
+        f"loss {rd['losses'][0]:.7f} vs 1-rank {rd1['losses'][0]:.7f} (rel {rel:.2e}); "
+        f"step ms {rd['step_ms'][0]:.1f} vs {rd1['step_ms'][0]:.1f}")
+    gates.check(rel <= MESH_KGE_RTOL, f"rotate dp loss rel {rel}")
+    rm, rm1 = two[0]["kge_cases"][1], one["kge_cases"][1]
+    equal = all(np.array_equal(v, rm1["ranks"][k]) for k, v in rm["ranks"].items())
+    log(f"[mesh] rotate dp×mp step (mesh {rm['mesh']}): loss {rm['losses'][0]:.7f} vs "
+        f"{rm1['losses'][0]:.7f}; {cfg['kge']['n_test']} test triples ranked on the row-split "
+        f"table in {rm['lp_ms_per_triple']:.2f} ms per triple (replicated "
+        f"{rm1['lp_ms_per_triple']:.2f}); ranks equal: {equal}")
+    gates.check(equal, "rotate ranks on the row-split table differ from the replicated ones")
+    gates.check(np.isclose(rm["losses"][0], rm1["losses"][0], rtol=MESH_KGE_RTOL),
+                f"rotate dp×mp loss {rm['losses'][0]} vs {rm1['losses'][0]}")
+
+    def strip(res):
+        """A world's result without the arrays (parameters, moments, embeddings)."""
+        f = {k: v for k, v in res["fusion"].items() if k not in ("params", "moment")}
+        z = {k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in res["zsl"].items()
+             if k != "state"}
+        kge = [{k: v for k, v in c.items() if k not in ("params", "ranks")}
+               for c in res["kge_cases"]]
+        return dict(rank=res["rank"], world=res["world"], backend=res["backend"],
+                    device=res["device"], fusion=f, tp={k: v for k, v in res["tp"].items()
+                                                       if k != "emb"}, zsl=z, kge=kge)
+
+    out = dict(card=card, launches_by_rank=by_rank,
+               worlds={str(w): [strip(r) for r in rs] for w, rs in worlds.items()},
+               lines=[line for _, line in dry.compare(two[0], one)],
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[mesh] phase 9 in {out['phase_s']:.1f} s ({card})")
+    gates.close()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1677,28 +1845,33 @@ def main() -> int:
         cli16_info = timed("7_bf16_cli", phase_bf16_cli, os.path.join(tmp, "cli_bf16"),
                            card=card)
         kge_info = timed("8_kge", phase_kge, os.path.join(tmp, "kge"), card=card)
+        mesh_info = timed("9_mesh", phase_mesh, os.path.join(tmp, "mesh"), card=card)
 
     def entry(name, replaces, case, dtype="float32"):
         """One kernel's line: its times at ``case`` in ``dtype``, its
         launches on each path of this run (phases 3-6 in float32, phase 7 in
-        bfloat16, phase 8 in either)."""
+        bfloat16, phase 8 in either, phase 9 in float32 on each rank)."""
         rec = next(r for r in recs if r["case"] == case and r["dtype"] == dtype)
         if dtype == "float32":
             by_path = {"serving": slice_info["launches"][name],
                        "training": train_info["launches"][name],
                        "zsl_training": zsl_info["launches"][name],
                        "cli": cli_info["launches"][name],
-                       "kge": kge_info["launches"][f"{name}.float32"]}
+                       "kge": kge_info["launches"][f"{name}.float32"],
+                       # per rank of each world (its own process's counter)
+                       "mesh": {r: c[name] for r, c in mesh_info["launches_by_rank"].items()}}
         else:
             key = f"{name}.{dtype}"
             by_path = {"serving": serve16_info["launches"].get(key, 0),
                        "training": train16_info["launches"].get(key, 0),
                        "zsl_training": gan16_info["launches"].get(key, 0),
                        "cli": cli16_info["launches"].get(key, 0),
-                       "kge": kge_info["launches"][key]}
+                       "kge": kge_info["launches"][key],
+                       "mesh": {r: 0 for r in mesh_info["launches_by_rank"]}}
             name = f"{name}_bf16"
+        launches = sum(v if isinstance(v, int) else sum(v.values()) for v in by_path.values())
         return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
-                "replaces": replaces, "launches": sum(by_path.values()),
+                "replaces": replaces, "launches": launches,
                 "launches_by_path": by_path, "case": case,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -1719,7 +1892,7 @@ def main() -> int:
                        slice=slice_info, train=train_info, zsl=zsl_info, cli=cli_info,
                        bf16_serving=serve16_info, bf16_train=train16_info,
                        bf16_gan=gan16_info, bf16_cli=cli16_info, kge=kge_info,
-                       phase_s=phase_s,
+                       mesh=mesh_info, phase_s=phase_s,
                        kernels=kernels["kernels"]),
                   f, indent=1)
     log(json.dumps(kernels))

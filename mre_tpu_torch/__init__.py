@@ -20,7 +20,15 @@ the same name. It imports torch and numpy only. Ported so far:
   (``openke/``) with its native sampler (``csrc/sampler.cpp``, built by g++
   at first use), and the runner ``python -m mre_tpu_torch.tools.train_kge``.
 
-The mesh (``parallel/mesh.py``) is not ported yet.
+* the parallel layer (``parallel/mesh.py``): a ``(data, model)`` process
+  mesh over ``torch.distributed`` (NCCL on cards, gloo on the CPU) and its
+  users: the data-parallel fusion step, the tensor-parallel entity sweep,
+  the data-parallel D and G steps, the ``rel_shared`` evaluation, the KGE
+  step with the entity table's rows over ``model`` and its filtered link
+  prediction; ``python -m mre_tpu_torch.tools.dryrun_multichip`` checks
+  them against a 1-rank run.
+
+Everything the JAX package does is ported.
 
 Attention on CUDA tensors runs a hand-written sm_90a kernel
 (``csrc/attention_fwd.cu``, bound in ``ops/attention.py``).

@@ -40,9 +40,9 @@ from mre_tpu_torch.zsl.module import ZSLConfig, ZSLModule
 
 def check_ported(args) -> None:
     """Check the options before anything is built. Every flag of the JAX
-    entry point is ported; the one part of the JAX package the port still
-    lacks is the mesh (``parallel/mesh.py``, ROADMAP.md §1 item 6), which no
-    flag selects.
+    entry point is ported. The JAX CLI has no mesh flag (its mesh is an
+    argument of the library's trainers), so neither has this one: the mesh
+    is ``parallel/mesh.py``, driven by ``tools/dryrun_multichip.py``.
     ``--compute_dtype`` must name a type the attention kernel has (float32
     or bfloat16; a ValueError otherwise)."""
     compute_dtype(args.compute_dtype)

@@ -10,7 +10,8 @@ a separate subtree (the Discriminator's ``{"params", "spectral"}``).
 Format: ``torch.save`` of the tree with CPU tensor leaves, plus a JSON
 sidecar ``path + ".meta.json"`` that gives ``[shape, dtype]`` per leaf in the
 same nesting, with numpy dtype names: the sidecar of a port checkpoint is
-the JAX package's sidecar of the same tree, byte for byte.
+the JAX package's sidecar of the same tree, byte for byte. Under a process
+mesh rank 0 writes and the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import os
 
 import numpy as np
 import torch
+
+from mre_tpu_torch.parallel import mesh as pmesh
 
 
 def _to_numpy(tree):
@@ -36,15 +39,24 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def save_checkpoint(path: str, tree: dict) -> None:
-    """Write ``tree`` (leaves: tensors or arrays) and its sidecar."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tree = _to_numpy(tree)
-    torch.save(_map(lambda a: torch.from_numpy(np.array(a, order="C")), tree), path)
-    meta = _map(lambda a: [list(a.shape), str(a.dtype)], tree)
-    with open(path + ".meta.json", "w") as f:
-        # key order of a flattened flax tree: sorted at every level
-        json.dump(meta, f, sort_keys=True)
+def save_checkpoint(path: str, tree: dict, mesh=None) -> None:
+    """Write ``tree`` (leaves: tensors or arrays) and its sidecar, each under
+    a temporary name and then renamed into place. Under a mesh
+    (``parallel.mesh.Mesh``; every rank holds the same tree) rank 0 writes
+    and every rank waits for it at a barrier, so each may load it next."""
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tree = _to_numpy(tree)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(_map(lambda a: torch.from_numpy(np.array(a, order="C")), tree), tmp)
+        os.replace(tmp, path)
+        meta = _map(lambda a: [list(a.shape), str(a.dtype)], tree)
+        with open(tmp, "w") as f:
+            # key order of a flattened flax tree: sorted at every level
+            json.dump(meta, f, sort_keys=True)
+        os.replace(tmp, path + ".meta.json")
+    if mesh is not None:
+        pmesh.barrier()
 
 
 def _check_structure(loaded, target, where: str = "") -> None:

@@ -10,7 +10,8 @@ the relation's unit-normalized generated vectors.
 * ``evaluate_zero_shot_rel_shared`` — every query of a relation ranks the
   same shared candidate list (reference utils/gen_mode_candidates.py), so
   each chunk carries its relation's shared row and the candidate gather and
-  the SupportEncoder's first matmul are computed once per chunk.
+  the SupportEncoder's first matmul are computed once per chunk; under a
+  process mesh the chunks are ranked data parallel.
 
 Ranks are pessimistic, 1 + #greater + #tied; in the shared-list path a
 duplicate candidate counts once per occurrence (zero_shot.py:28-47,
@@ -116,20 +117,29 @@ def _rank_stream_block(embed_query_block: Callable, heads, right, mask, vbar) ->
 
 @torch.no_grad()
 def _rank_stream_rel_shared(embed_rel_block: Callable, embed_true: Callable,
-                            heads, trues, shared, mask, vbar) -> np.ndarray:
+                            heads, trues, shared, mask, vbar, mesh=None) -> np.ndarray:
     """heads/trues [nc, chunk]; shared [nc, C]; mask [nc, chunk, C]
     per-occurrence candidate counts; vbar [nc, chunk, D]. Returns ranks
-    [nc·chunk] (host)."""
-    ranks = []
-    for c in range(heads.shape[0]):
+    [nc·chunk] (host). With ``mesh`` (the chunk count a multiple of its
+    ``data`` axis) data rank d ranks chunks d, d + n_data, … (the JAX
+    layout, zero_shot.py:157-167) and the integer ranks are summed over
+    the data group into chunk order: no float crosses ranks."""
+    nc = heads.shape[0]
+    step, first = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index)
+    ranks = torch.zeros(heads.shape, dtype=torch.int64, device=heads.device)
+    for c in range(first, nc, step):
         emb = _unit(embed_rel_block(heads[c], shared[c]).float())    # [chunk, C, D]
         te = _unit(embed_true(heads[c], trues[c]).float())           # [chunk, D]
         v = vbar[c]
         scores = torch.einsum("qcd,qd->qc", emb, v)
         true_s = torch.einsum("qd,qd->q", te, v)
-        ranks.append(torch.where(scores >= true_s[:, None], mask[c],
-                                 torch.zeros_like(mask[c])).sum(1) + 1)
-    return torch.cat(ranks).cpu().numpy()
+        ranks[c] = torch.where(scores >= true_s[:, None], mask[c],
+                               torch.zeros_like(mask[c])).sum(1) + 1
+    if mesh is not None:
+        from mre_tpu_torch.parallel import mesh as pmesh
+
+        ranks = pmesh.all_reduce_sum(ranks, mesh.data_group)
+    return ranks.reshape(-1).cpu().numpy()
 
 
 def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
@@ -138,14 +148,20 @@ def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
                                   generate_relation_vecs: Callable,
                                   query_chunk: int = 64, verbose: bool = True,
                                   return_ranks: bool = False,
-                                  device: torch.device | str | None = None) -> dict:
+                                  device: torch.device | str | None = None,
+                                  mesh=None) -> dict:
     """Zero-shot ranking via the relation-shared path.
 
     ``embed_rel_block(heads [Q], shared [C]) → [Q, C, D]``,
     ``embed_true(heads [Q], trues [Q]) → [Q, D]``,
     ``generate_relation_vecs(rel_name) → [S, D]``. Ranks on ``device``
-    (default ``cuda``)."""
-    device = resolve_device(device)
+    (default ``cuda``; the mesh's device under a mesh).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) ranks the chunks data parallel over
+    its ``data`` axis; the chunk count is padded to the axis with all-masked
+    dummy chunks past every real one, and the ranks are identical to the
+    single-device run's (zero_shot.py:300-330)."""
+    device = resolve_device(mesh.device if device is None and mesh is not None else device)
     rel_order = list(test_candidates.keys())
     shared_idx: dict = {}
     c_max = 1
@@ -192,6 +208,15 @@ def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
 
     if sum(counts) == 0:
         return _empty_result(return_ranks)
+    if mesh is not None:
+        # dummy chunks sit past every real (count, pad) offset below, so the
+        # per-relation slicing never reads them
+        for _ in range((-len(shared_rows)) % mesh.n_data):
+            shared_rows.append(np.zeros(c_max, np.int32))
+            heads_l += [0] * query_chunk
+            trues_l += [0] * query_chunk
+            mask_l += [np.zeros(c_max, np.int32)] * query_chunk
+            vbar_l += [np.zeros(D, np.float32)] * query_chunk
 
     nc = len(shared_rows)
 
@@ -204,7 +229,7 @@ def evaluate_zero_shot_rel_shared(test_candidates: dict, e2id: dict,
         put(np.asarray(trues_l).reshape(nc, query_chunk), torch.int64),
         put(np.stack(shared_rows), torch.int64),
         put(np.stack(mask_l).reshape(nc, query_chunk, c_max), torch.int64),
-        put(np.stack(vbar_l).reshape(nc, query_chunk, -1), torch.float32))
+        put(np.stack(vbar_l).reshape(nc, query_chunk, -1), torch.float32), mesh)
 
     per_relation = {}
     real_ranks = []

@@ -109,6 +109,12 @@ class Params(nn.Module):
                 **dict(self.named_buffers(recurse=False))}
 
 
+def is_entity_table(key: str) -> bool:
+    """Whether the parameter ``key`` is indexed by entity id (``ent``,
+    ``ent_p``, ``ent_re``, ``ent_im``): the tables a model axis splits."""
+    return key.startswith("ent")
+
+
 def _mean_sq(*xs):
     return sum((x * x).mean() for x in xs) / len(xs)
 

@@ -93,6 +93,43 @@ class TransformerMLP(nn.Module):
         return drop(x, self.dropout) if dropping else x
 
 
+class TensorParallelMLP(nn.Module):
+    """A ``TransformerMLP`` split Megatron-style over the model axis of a
+    mesh (``parallel.mesh.shard_transformer_ffn``; the JAX shardings of
+    ``mesh.py:68-89``): this rank computes with ``fc1``'s output columns
+    and bias and ``fc2``'s input rows for its model index, as views of the
+    replicated module's weights (no copy; they follow its updates). The
+    ``fc2`` products are summed over the model group, then ``fc2``'s bias
+    is added once. Dropout would need the replicated layer's masks, so a
+    non-deterministic pass with a rate raises."""
+
+    def __init__(self, mlp: TransformerMLP, mesh):
+        super().__init__()
+        width = mlp.fc1.out_features // mesh.n_model
+        cols = slice(mesh.model_index * width, (mesh.model_index + 1) * width)
+        self.group = mesh.model_group
+        self.dropout = mlp.dropout
+        self.compute_dtype = mlp.compute_dtype
+        self.w1, self.b1 = mlp.fc1.weight[cols], mlp.fc1.bias[cols]
+        self.w2, self.b2 = mlp.fc2.weight[:, cols], mlp.fc2.bias
+
+    def forward(self, x, deterministic: bool = True, drop=None):
+        from mre_tpu_torch.parallel import mesh as pmesh
+
+        if self.dropout and not deterministic:
+            raise NotImplementedError("TensorParallelMLP: dropout in a tensor-parallel "
+                                      "FFN is not supported")
+        dtype = self.compute_dtype
+        x = pmesh.copy_to_group(x, self.group)
+        if dtype == torch.float32:
+            x = F.linear(x, self.w1, self.b1)
+        else:                                   # flax's rounding, as ``dense``
+            x = F.linear(x.to(dtype), self.w1.to(dtype)) + self.b1.to(dtype)
+        y = F.linear(gelu(x).to(dtype), self.w2.to(dtype))
+        y = pmesh.all_reduce_sum(y, self.group, replicated_grad=True)
+        return y + self.b2.to(dtype)
+
+
 def _attention_dropped(q, k, v, padding_mask, scale, rate, drop):
     """JAX's plain attention with dropout on the probabilities
     (transformer.py:129-137): float32 logits and softmax, the output in
@@ -241,22 +278,34 @@ class DropoutMasks:
     * ``drop.path(x, rate)`` — ``DropPath`` (transformer.py:50-63): one
       0/1 value per sample, ``floor(keep + U)`` over ``[B, 1, …]``, applied
       as ``x / keep · mask`` (the float32 mask promotes a bfloat16 ``x``,
-      as in JAX); a given mask has that ``[B, 1, …]`` shape."""
+      as in JAX); a given mask has that ``[B, 1, …]`` shape.
 
-    def __init__(self, generator: torch.Generator | None = None, masks=None):
+    ``rows`` (a ``parallel.mesh.RowShard``) serves a data-parallel rank
+    that holds those rows of each masked tensor: every mask is drawn (or
+    taken) at the full batch and cut to the rank's rows, so the ranks
+    together apply the masks of the undivided batch."""
+
+    def __init__(self, generator: torch.Generator | None = None, masks=None, rows=None):
         if (generator is None) == (masks is None):
             raise ValueError("DropoutMasks needs exactly one of generator, masks")
         self.generator = generator
         self._given = None if masks is None else list(masks)
+        self.rows = rows
         self.used = 0
+
+    def _full(self, shape) -> tuple:
+        return tuple(shape) if self.rows is None else (self.rows.n,) + tuple(shape[1:])
+
+    def _cut(self, mask: torch.Tensor) -> torch.Tensor:
+        return mask if self.rows is None else self.rows.local(mask)
 
     def _take(self, shape, dtype, device) -> torch.Tensor:
         if self.used == len(self._given):
             raise ValueError(f"DropoutMasks: only {len(self._given)} masks given")
         mask = torch.as_tensor(self._given[self.used], dtype=dtype, device=device)
-        if tuple(mask.shape) != tuple(shape):
+        if tuple(mask.shape) != self._full(shape):
             raise ValueError(f"DropoutMasks: mask {self.used} has shape "
-                             f"{tuple(mask.shape)}, expected {tuple(shape)}")
+                             f"{tuple(mask.shape)}, expected {self._full(shape)}")
         return mask
 
     def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
@@ -264,9 +313,10 @@ class DropoutMasks:
         if self._given is not None:
             mask = self._take(x.shape, torch.bool, x.device)
         else:
-            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+            mask = torch.rand(self._full(x.shape), generator=self.generator,
+                              device=x.device) < keep
         self.used += 1
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return torch.where(self._cut(mask), x / keep, torch.zeros_like(x))
 
     def path(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         keep = 1.0 - rate
@@ -274,10 +324,10 @@ class DropoutMasks:
         if self._given is not None:
             mask = self._take(shape, torch.float32, x.device)
         else:
-            mask = torch.floor(keep + torch.rand(shape, generator=self.generator,
+            mask = torch.floor(keep + torch.rand(self._full(shape), generator=self.generator,
                                                  device=x.device))
         self.used += 1
-        return x / keep * mask
+        return x / keep * self._cut(mask)
 
     def check_all_used(self):
         """Given masks must be used up by the step they were given for."""

@@ -91,17 +91,21 @@ class UnifiedModel(nn.Module):
 
     # -- relation-description encoder ---------------------------------------
 
-    def _text_cls(self, description_tokens, des_padding_mask):
+    def _text_cls(self, description_tokens, des_padding_mask, shard=None):
         # the JAX stop_gradient (unified.py:109): no graph is built, so a
         # training step keeps no activations of this pass
         with torch.no_grad():
+            if shard is not None:
+                description_tokens = shard.local(description_tokens)
+                des_padding_mask = shard.local(des_padding_mask)
             rel_emb, _ = self.M3AEmodel.forward_representation(
                 None, description_tokens, des_padding_mask)
-        return rel_emb.reshape(rel_emb.shape[0], -1)
+            rel_emb = rel_emb.reshape(rel_emb.shape[0], -1)
+            return rel_emb if shard is None else shard.gather(rel_emb)
 
     def forward_relation_emb(self, description_tokens, des_padding_mask,
-                             update_sn: bool = False):
-        rel_emb = self._text_cls(description_tokens, des_padding_mask)
+                             update_sn: bool = False, shard=None):
+        rel_emb = self._text_cls(description_tokens, des_padding_mask, shard)
         rel_emb = self.des_rel_map_layer1(rel_emb, update_stats=update_sn)
         rel_emb = self.des_rel_map_layer2(rel_emb, update_stats=update_sn)
         if self.cfg.norm_rel_emb:
@@ -135,19 +139,35 @@ class UnifiedModel(nn.Module):
 
     def forward_train(self, edge_index, edge_type, batch, image_ids_shuffle,
                       text_ids_shuffle, edge_mask=None, update_sn: bool = False,
-                      node_mask=None):
+                      node_mask=None, node_shard=None, edge_shard=None):
         """(x_gcn, rel_emb, batch_output) as the JAX ``__call__``; the masking
         permutations [L] of the image patches and the text tokens are
-        arguments (``ops/masking.py``)."""
+        arguments (``ops/masking.py``).
+
+        Data parallel (``parallel.mesh.RowShard``): with ``node_shard`` the
+        M3AE passes (representation, masked encoder, decoder) run on this
+        rank's node rows only, and the cls and mean-token reps are gathered
+        into the full node table, so the RGCN and the contrastive loss see
+        every node; ``batch_output``'s image and text outputs and masks are
+        this rank's rows. ``edge_shard`` does the same for the description
+        pass of the relation encoder."""
         image = batch.get("image_patches")
         text = batch["text"]
         text_padding_mask = batch["text_padding_mask"]
         m3ae = self.M3AEmodel
+        if node_shard is not None:
+            image, text, text_padding_mask = (
+                None if image is None else node_shard.local(image),
+                node_shard.local(text), node_shard.local(text_padding_mask))
+
+        def gathered(x):
+            return x if node_shard is None else node_shard.gather(x)
 
         cls_x, _ = m3ae.forward_representation(image, text, text_padding_mask)
-        x_gcn = self.gcn_forward_encoder(cls_x, edge_index, edge_type, edge_mask)
+        x_gcn = self.gcn_forward_encoder(gathered(cls_x), edge_index, edge_type, edge_mask)
         rel_emb = self.forward_relation_emb(
-            batch["rel_des"], batch["rel_des_padding_mask"], update_sn=update_sn)
+            batch["rel_des"], batch["rel_des_padding_mask"], update_sn=update_sn,
+            shard=edge_shard)
 
         (enc_cls, image_x, text_x, image_mask, text_mask,
          image_ids_restore, text_ids_restore) = m3ae.forward_encoder(
@@ -157,7 +177,8 @@ class UnifiedModel(nn.Module):
             text_padding_mask)
 
         if self.cfg.contrastive and image is not None and text is not None:
-            loss_c, c_acc = L.contrastive_loss(image_x.mean(dim=1), text_x.mean(dim=1),
+            loss_c, c_acc = L.contrastive_loss(gathered(image_x.mean(dim=1)),
+                                               gathered(text_x.mean(dim=1)),
                                                row_mask=node_mask)
         else:
             loss_c = c_acc = torch.zeros((), device=cls_x.device)

@@ -4,8 +4,8 @@ mre_tpu/openke/native/__init__.py).
 ``csrc/sampler.cpp`` is a byte-for-byte copy of the JAX package's source,
 so a seed and a thread count give the same batches from either library.
 It is compiled by g++ on first use, never at import, into ``_build/``
-(written under a temporary name, then renamed into place, so concurrent
-processes never load a half-written file). The library keeps its state per
+(``utils/build.py``: one process builds while concurrent first users wait,
+and the file is renamed into place, so none loads a half-written file). The library keeps its state per
 loaded copy: this one and the JAX package's are separate files, loaded
 with RTLD_LOCAL, and share nothing.
 """
@@ -16,6 +16,8 @@ import ctypes
 import os
 import subprocess
 
+from mre_tpu_torch.utils.build import build_once
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "csrc", "sampler.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -24,18 +26,16 @@ SO = os.path.join(BUILD_DIR, "sampler.so")
 
 def build(force: bool = False) -> str:
     """Compile ``sampler.so`` if it is missing or older than its source;
-    raises ``subprocess.CalledProcessError`` (with g++'s output) on failure."""
-    if force or not os.path.exists(SO) or os.path.getmtime(SO) < os.path.getmtime(SRC):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{SO}.{os.getpid()}.tmp"
-        cmd = ["g++", "-O2", "-std=c++17", "-fPIC", "-shared", SRC, "-o", tmp, "-pthread"]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, text=True)
-            os.replace(tmp, SO)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return SO
+    raises ``subprocess.CalledProcessError`` (with g++'s output) on failure.
+    Safe under concurrent first use (``utils/build.py``)."""
+    def compile_to(tmp) -> None:
+        cmd = ["g++", "-O2", "-std=c++17", "-fPIC", "-shared", SRC, "-o", str(tmp), "-pthread"]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+
+    def stale(so) -> bool:
+        return force or os.path.getmtime(so) < os.path.getmtime(SRC)
+
+    return str(build_once(SO, compile_to, stale))
 
 
 def load() -> ctypes.CDLL:

@@ -38,6 +38,8 @@ from pathlib import Path
 
 import torch
 
+from mre_tpu_torch.utils.build import build_once
+
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "attention_fwd.cu"
 BUILD_DIR = _PKG / "_build"
@@ -85,23 +87,26 @@ def _nvcc() -> str:
 def build(defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/attention_fwd.cu`` for sm_90a (once per source hash
     and ``defines``, e.g. ``("ATTN_BLOCK_K=128", "ATTN_WARPS=8")`` for a
-    tile sweep). The ptxas report goes beside the library."""
+    tile sweep). The ptxas report goes beside the library. Safe under
+    concurrent first use (``utils/build.py``)."""
     key = _SOURCE.read_bytes() + "\0".join(defines).encode()
     name = f"libattention_fwd-{hashlib.sha256(key).hexdigest()[:12]}"
-    lib = BUILD_DIR / f"{name}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           *(f"-D{d}" for d in defines), "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
-    return lib
+    report = BUILD_DIR / f"{name}.ptxas.txt"
+
+    def compile_to(tmp: Path) -> None:
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               *(f"-D{d}" for d in defines), "-o", str(tmp), str(_SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        # the report is in place before the library is
+        tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+        tmp_report.write_text(proc.stderr)
+        os.replace(tmp_report, report)
+
+    # one process compiles, concurrent first users wait for it
+    return build_once(BUILD_DIR / f"{name}.so", compile_to)
 
 
 _ENTRY = re.compile(r"attention_fwd_kernelILi(\d+)E(f|13__nv_bfloat16)E")

@@ -9,6 +9,13 @@ semantics of Test.h:83 (rank = 1 + #candidates scoring strictly below the
 true triple, the true entity excluded, known-true candidates excluded for
 the filtered rank). The structural evaluator (main.py:217-272) ranks
 candidate 0 of each padded list (``candidate_ranks``).
+
+With the entity tables split by rows over a mesh's ``model`` axis
+(``shard``, a ``parallel.mesh.RowShard``), each rank scores its own
+entities (``shard_predictors``), the owner of the true entity contributes
+its score (summed exactly over the group: the others add 0) and the
+per-rank counts of candidates that beat it are summed: the ranks of the
+whole table, from the same per-row arithmetic.
 """
 
 from __future__ import annotations
@@ -62,8 +69,10 @@ def _filter_mask(kg: DeviceKG, anchors, r, side: str, n_entities: int,
 
 
 def _rank_chunk(predict_all: Callable, params, kg: DeviceKG, h, r, t, side: str,
-                filter_pad: int, type_mask=None):
-    """Ranks for one chunk: (raw, filtered[, type-constrained raw, filtered])."""
+                filter_pad: int, type_mask=None, shard=None):
+    """Ranks for one chunk: (raw, filtered[, type-constrained raw, filtered]).
+    With ``shard`` the scores are this rank's entities' and the counts are
+    summed over its group."""
     n_ent = kg.n_entities
     if side == "tail":
         scores = predict_all(params, h, r)                 # [B, E], lower = better
@@ -73,16 +82,31 @@ def _rank_chunk(predict_all: Callable, params, kg: DeviceKG, h, r, t, side: str,
         scores = predict_all(params, t, r)
         true_idx = h
         known = _filter_mask(kg, t, r, "head", n_ent, filter_pad)
-    true_score = torch.gather(scores, 1, true_idx[:, None])
-    is_true = torch.zeros_like(known)
-    is_true[torch.arange(true_idx.shape[0], device=true_idx.device), true_idx] = True
+    rows = torch.arange(true_idx.shape[0], device=true_idx.device)
+    if shard is None:
+        true_score = torch.gather(scores, 1, true_idx[:, None])
+        is_true = torch.zeros_like(known)
+        is_true[rows, true_idx] = True
+    else:
+        from mre_tpu_torch.parallel import mesh as pmesh
+
+        known = shard.local(known.T).T
+        type_mask = None if type_mask is None else shard.local(type_mask.T).T
+        own = (true_idx >= shard.rows.start) & (true_idx < shard.rows.stop)
+        col = torch.clamp(true_idx - shard.rows.start, 0, shard.n_local - 1)
+        mine = torch.where(own, scores[rows, col], torch.zeros_like(scores[rows, col]))
+        true_score = pmesh.all_reduce_sum(mine, shard.group)[:, None]
+        is_true = torch.zeros_like(known)
+        is_true[rows, col] = own
     below = (scores < true_score) & ~is_true
-    raw = below.sum(dim=1) + 1
-    filt = (below & ~known).sum(dim=1) + 1
-    if type_mask is None:
-        return raw, filt
-    allowed = below & type_mask
-    return raw, filt, allowed.sum(dim=1) + 1, (allowed & ~known).sum(dim=1) + 1
+    counts = [below.sum(dim=1), (below & ~known).sum(dim=1)]
+    if type_mask is not None:
+        allowed = below & type_mask
+        counts += [allowed.sum(dim=1), (allowed & ~known).sum(dim=1)]
+    counts = torch.stack(counts)
+    if shard is not None:
+        counts = pmesh.all_reduce_sum(counts, shard.group)
+    return tuple(counts + 1)
 
 
 def _metrics(ranks) -> RankResults:
@@ -94,11 +118,13 @@ def _metrics(ranks) -> RankResults:
 
 def rank_arrays(predict_all_tails: Callable, predict_all_heads: Callable, params,
                 kg_filter: DeviceKG, test_triples, chunk: int = 256,
-                filter_pad: int | None = None, type_constraints=None) -> dict[str, np.ndarray]:
+                filter_pad: int | None = None, type_constraints=None,
+                shard=None) -> dict[str, np.ndarray]:
     """Per-triple ranks, [n] int64 numpy arrays under ``tail_raw``,
     ``tail_filter``, ``head_raw``, ``head_filter`` (and ``*_tc`` with
     ``type_constraints``). The ranks of every chunk stay on the device and
-    come to the host once."""
+    come to the host once. With ``shard`` the predictors score this rank's
+    entities (``shard_predictors``) and ``params`` holds its rows."""
     test = np.asarray(test_triples, np.int64).reshape(-1, 3)
     n = len(test)
     if n == 0:
@@ -118,9 +144,11 @@ def rank_arrays(predict_all_tails: Callable, predict_all_heads: Callable, params
         for i in range(0, n, chunk):
             h, r, t = triples[i:i + chunk].unbind(1)
             tails.append(torch.stack(_rank_chunk(predict_all_tails, params, kg_filter, h, r, t,
-                                                 "tail", filter_pad, tail_tc[r] if tc else None)))
+                                                 "tail", filter_pad, tail_tc[r] if tc else None,
+                                                 shard)))
             heads.append(torch.stack(_rank_chunk(predict_all_heads, params, kg_filter, h, r, t,
-                                                 "head", filter_pad, head_tc[r] if tc else None)))
+                                                 "head", filter_pad, head_tc[r] if tc else None,
+                                                 shard)))
     tails = torch.cat(tails, dim=1).cpu().numpy()
     heads = torch.cat(heads, dim=1).cpu().numpy()
     names = ("raw", "filter", "raw_tc", "filter_tc")
@@ -134,7 +162,7 @@ def rank_arrays(predict_all_tails: Callable, predict_all_heads: Callable, params
 def link_prediction(predict_all_tails: Callable, predict_all_heads: Callable, params,
                     kg_filter: DeviceKG, test_triples, chunk: int = 256,
                     filter_pad: int | None = None,
-                    type_constraints=None) -> dict[str, RankResults]:
+                    type_constraints=None, shard=None) -> dict[str, RankResults]:
     """Head and tail link prediction over all test triples.
 
     ``kg_filter`` must index the UNION of the train / valid / test triples
@@ -144,7 +172,7 @@ def link_prediction(predict_all_tails: Callable, predict_all_heads: Callable, pa
     pair, is given), each averaging head and tail ranks like
     Test.h:232-327."""
     ranks = rank_arrays(predict_all_tails, predict_all_heads, params, kg_filter,
-                        test_triples, chunk, filter_pad, type_constraints)
+                        test_triples, chunk, filter_pad, type_constraints, shard)
     names = ("raw", "filter") + (("raw_tc", "filter_tc") if type_constraints is not None else ())
     return {name: _metrics(np.concatenate([ranks[f"tail_{name}"], ranks[f"head_{name}"]]))
             for name in names}
@@ -156,15 +184,18 @@ def _row_width(params) -> int:
     return max(int(np.prod(v.shape[1:])) for v in params.values() if v.dim() >= 2)
 
 
-def make_predict_all(model, kg: DeviceKG, ent_chunk: int | None = None):
+def make_predict_all(model, kg: DeviceKG, ent_chunk: int | None = None,
+                     n_candidates: int | None = None):
     """(predict_all_tails, predict_all_heads): ``(params, anchor, r) →
     [B, E]`` lower-is-better scores.
 
     The model's matmul fast path where it has one; otherwise ``predict``
     broadcast over chunks of entities. ``ent_chunk`` None sizes each chunk
     so that one [B, chunk, row width] float32 intermediate takes at most
-    ``ENT_CHUNK_BYTES``; the scores do not depend on the chunk."""
-    n_ent = kg.n_entities
+    ``ENT_CHUNK_BYTES``; the scores do not depend on the chunk.
+    ``n_candidates`` scores only the first entity rows of ``params`` (E
+    columns; all ``kg.n_entities`` when None)."""
+    n_ent = kg.n_entities if n_candidates is None else n_candidates
 
     def chunked(params, anchor, r, tail: bool):
         B = anchor.shape[0]
@@ -179,18 +210,41 @@ def make_predict_all(model, kg: DeviceKG, ent_chunk: int | None = None):
         return torch.cat(parts, dim=1)
 
     if model.score_all_tails is not None:
-        all_tails = model.score_all_tails
+        def all_tails(params, h, r):
+            return model.score_all_tails(params, h, r)[:, :n_ent]
     else:
         def all_tails(params, h, r):
             return chunked(params, h, r, True)
 
     if model.score_all_heads is not None:
-        all_heads = model.score_all_heads
+        def all_heads(params, t, r):
+            return model.score_all_heads(params, t, r)[:, :n_ent]
     else:
         def all_heads(params, t, r):
             return chunked(params, t, r, False)
 
     return all_tails, all_heads
+
+
+def shard_predictors(predict_all_tails: Callable, predict_all_heads: Callable, shard):
+    """Predictors for entity tables split by rows over ``shard.group``, from
+    ``make_predict_all(..., n_candidates=shard.n_local)``: ``(params,
+    anchor, r) → [B, n_local]`` scores of this rank's entities, ``params``
+    holding this rank's rows of every entity table. The anchors' rows are
+    looked up across the group and appended to each local table, so the
+    model scores them against the local rows with its own arithmetic."""
+    from mre_tpu_torch.models.kge import is_entity_table
+    from mre_tpu_torch.parallel import mesh as pmesh
+
+    def extend(predict_all):
+        def fn(params, anchor, r):
+            ext = {k: torch.cat([v, pmesh.lookup_rows(v, anchor, shard)])
+                   if is_entity_table(k) else v for k, v in params.items()}
+            idx = shard.n_local + torch.arange(anchor.shape[0], device=anchor.device)
+            return predict_all(ext, idx, r)
+        return fn
+
+    return extend(predict_all_tails), extend(predict_all_heads)
 
 
 def candidate_ranks(scores: torch.Tensor, cand_mask: torch.Tensor,

@@ -30,18 +30,36 @@ distill predictor (``train_distill``, ``generate_rel_embeddings_unseen``)
 maps relation descriptions to relation embeddings through a small MLP over
 the frozen text embeddings (models/distill.py).
 
+Data parallel (``mesh=``, a ``parallel.mesh.Mesh``; the JAX
+``_shard_batch`` rules, fusion.py:288-309): every rank holds the same full
+device batch and the same draws (the identically seeded generator), runs
+the M3AE passes on its own node rows (and the description pass on its own
+edge rows), and gathers the cls and mean-token reps into the full node
+table; the RGCN, the TransE margin, the regulariser and the contrastive
+loss run replicated. The row-mean losses (patch MSE, token CE) become this
+rank's sum over the global row count, the replicated terms are scaled by
+``1 / n_data`` (the gather's backward sums every rank's copy), and the
+gradients are SUMmed over the data group before every rank steps adam. A
+row count that the data axis does not divide runs replicated, as in JAX.
+``generate_ent_embeddings(mesh=)`` splits each entity batch over ``data``
+and the FFNs over ``model`` (tensor parallel), gathers the reps in entity
+order and runs the RGCN sweep replicated.
+
 Weights are the seeded port init, or carried from the JAX package with
 ``interop.load_flax(trainer.model, params, spectral)``.
 ``compute_dtype="bfloat16"`` runs the M3AE transformers' Dense layers and
 the attention kernel in bfloat16 over float32 parameters; parameters, adam
 state and checkpoints stay float32. ``image_cache`` decodes every entity
 image once at construction (``MultimodalStore.precompute_image_cache``).
-The mesh is not ported.
+``train_state`` / ``load_train_state`` carry everything a step reads
+(parameters, spectral vectors, adam, the generator, the step count), for a
+resume that continues bit for bit.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import math
 import queue
@@ -60,9 +78,16 @@ from mre_tpu_torch.models.unified import UnifiedModel, unified_config
 from mre_tpu_torch.ops import losses as L
 from mre_tpu_torch.ops import sampling
 from mre_tpu_torch.ops.patches import extract_patches
+from mre_tpu_torch.parallel import mesh as pmesh
 
 INFO_KEYS = ("loss", "gcn_loss", "struct_loss", "image_loss", "text_loss",
              "contrastive_loss", "text_accuracy", "neg_fail_frac")
+
+
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
+    return mesh
 
 
 def cosine_warm_restarts(lr_max: float, lr_min: float, t0: int, t_mult: int = 2,
@@ -126,8 +151,11 @@ class FusionConfig:
 
 class FusionTrainer:
     def __init__(self, table: TripleTable, store: MultimodalStore,
-                 cfg: FusionConfig, device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 cfg: FusionConfig, device: str | torch.device | None = None,
+                 mesh: pmesh.Mesh | None = None):
+        """``device`` defaults to the mesh's (``cuda`` without one)."""
+        self.mesh = _check_mesh(mesh)
+        self.device = resolve_device(mesh.device if device is None and mesh else device)
         self.table = table
         self.store = store
         self.cfg = cfg
@@ -205,10 +233,12 @@ class FusionTrainer:
         model_batch = {k: batch[k] for k in keys if k in batch}
         edge_index, edge_mask, node_mask = (batch["edge_index"], batch["edge_mask"],
                                             batch["node_mask"])
+        node_shard, edge_shard = self._shards(node_mask.shape[0], edge_mask.shape[0])
         x_gcn, rel_emb, out = self.model.forward_train(
             edge_index, batch["edge_type"], model_batch,
             draws.get("image_ids_shuffle"), draws["text_ids_shuffle"],
-            edge_mask=edge_mask, update_sn=True, node_mask=node_mask)
+            edge_mask=edge_mask, update_sn=True, node_mask=node_mask,
+            node_shard=node_shard, edge_shard=edge_shard)
 
         h_l, t_l = edge_index[0].long(), edge_index[1].long()
         neg_h, neg_t = draws["neg_h"].long(), draws["neg_t"].long()
@@ -233,32 +263,71 @@ class FusionTrainer:
                  + wmean_sq(rel_emb, w)) / 3
         struct_loss = gcn_loss + cfg.regul_rate * regul
 
+        # the M3AE outputs are this rank's node rows under a node shard
+        local = (lambda x: x) if node_shard is None else node_shard.local
+        nm_l = local(nm)
         image = model_batch.get("image_patches")
         if image is not None:
-            img_valid = (nm[:, None].expand_as(out["image_mask"])
-                         if cfg.image_all_token_loss else out["image_mask"] * nm[:, None])
-            image_loss = L.patch_mse_loss(out["image_output"], image, img_valid)
+            img_valid = (nm_l[:, None].expand_as(out["image_mask"])
+                         if cfg.image_all_token_loss else out["image_mask"] * nm_l[:, None])
+            image_loss = L.patch_mse_loss(out["image_output"], local(image), img_valid)
         else:
             image_loss = torch.zeros((), device=x_gcn.device)
         text_mask = out["text_mask"]
         text_valid = L.mask_intersection(
             torch.ones_like(text_mask) if cfg.text_all_token_loss else text_mask,
-            L.mask_not(model_batch["text_padding_mask"])) * nm[:, None]
+            L.mask_not(local(model_batch["text_padding_mask"]))) * nm_l[:, None]
         text_loss, text_acc = L.cross_entropy_loss_and_accuracy(
-            out["text_output"], model_batch["text"], text_valid)
+            out["text_output"], local(model_batch["text"]), text_valid)
 
-        total = (cfg.image_loss_weight * image_loss
-                 + cfg.text_loss_weight * text_loss
-                 + cfg.gcn_loss_weight * (struct_loss if cfg.regul_in_loss else gcn_loss)
-                 + cfg.contrastive_loss_weight * out["contrastive_loss"])
+        struct_term = struct_loss if cfg.regul_in_loss else gcn_loss
+        if self.mesh is None:
+            total = (cfg.image_loss_weight * image_loss
+                     + cfg.text_loss_weight * text_loss
+                     + cfg.gcn_loss_weight * struct_term
+                     + cfg.contrastive_loss_weight * out["contrastive_loss"])
+            loss = total.detach()
+        else:
+            share, rep_share = self._shares(node_shard)
+            rest = (cfg.gcn_loss_weight * struct_term
+                    + cfg.contrastive_loss_weight * out["contrastive_loss"])
+            total = ((cfg.image_loss_weight * image_loss + cfg.text_loss_weight * text_loss)
+                     * share + rest * rep_share)
+            if node_shard is not None:
+                image_loss, text_loss, text_acc = pmesh.all_reduce_sum(
+                    torch.stack([image_loss, text_loss, text_acc]).detach() * share,
+                    node_shard.group).unbind()
+            loss = (cfg.image_loss_weight * image_loss + cfg.text_loss_weight * text_loss
+                    + rest.detach())
         # real edges whose rejection rounds all hit true triples (their
         # negatives equal the positive): observable, not silent
         neg_fail_frac = (draws["neg_failed"].to(torch.float32) * w[:, None]).sum() / n_pairs
-        info = dict(loss=total, gcn_loss=gcn_loss, struct_loss=struct_loss,
+        info = dict(loss=loss, gcn_loss=gcn_loss, struct_loss=struct_loss,
                     image_loss=image_loss, text_loss=text_loss,
                     contrastive_loss=out["contrastive_loss"], text_accuracy=text_acc,
                     neg_fail_frac=neg_fail_frac)
         return total, {k: v.detach() for k, v in info.items()}
+
+    def _shares(self, node_shard) -> tuple[float, float]:
+        """(weight of this rank's row-mean losses, weight of the terms every
+        rank computes alike) in a data-parallel step: the row means become
+        the rank's share of the global mean, the replicated terms a
+        1/n_data share (the gather's backward sums every rank's copy), so
+        the ranks' gradients SUM to the global one."""
+        n_data = self.mesh.n_data
+        if node_shard is None:
+            return 1.0 / n_data, 1.0 / n_data
+        return node_shard.n_local / node_shard.n, 1.0 / n_data
+
+    def _shards(self, n_nodes: int, n_edges: int):
+        """(node, edge) ``RowShard``s of a data-parallel step: an axis the
+        data ranks do not divide runs replicated (None), as JAX replicates
+        it (fusion.py:303-309)."""
+        if self.mesh is None or self.mesh.n_data == 1:
+            return None, None
+        n = self.mesh.n_data
+        return tuple(pmesh.row_shard(self.mesh, k) if k % n == 0 else None
+                     for k in (n_nodes, n_edges))
 
     def step(self, batch: dict, draws: dict | None = None) -> dict:
         """One optimizer step on a device batch; returns ``info`` as 0-d
@@ -270,6 +339,8 @@ class FusionTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         total, info = self.loss(batch, draws)
         total.backward()
+        if self.mesh is not None:
+            pmesh.allreduce_grads(self.model.parameters(), self.mesh.data_group)
         self.optimizer.step()
         self.steps += 1
         return info
@@ -332,6 +403,30 @@ class FusionTrainer:
 
     # -- checkpoints ---------------------------------------------------------
 
+    def train_state(self) -> dict:
+        """Everything a step reads that training changes, as a tree of CPU
+        tensors for ``core/checkpoint.py``: the model's parameters and
+        spectral vectors (``state_dict`` names), adam's state, the draws'
+        generator and the step count."""
+        opt = self.optimizer.state_dict()["state"]
+        return {
+            "model": {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
+            "adam": {str(i): {k: torch.as_tensor(v).detach().cpu().clone()
+                              for k, v in st.items()} for i, st in opt.items()},
+            "generator": self._gen.get_state(),
+            "steps": torch.tensor(self.steps),
+        }
+
+    def load_train_state(self, tree: dict) -> None:
+        """Restore a ``train_state`` tree (e.g. from ``load_checkpoint``);
+        the next steps then continue the saved run bit for bit."""
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict({
+            "state": {int(i): dict(st) for i, st in tree["adam"].items()},
+            "param_groups": self.optimizer.state_dict()["param_groups"]})
+        self._gen.set_state(tree["generator"])
+        self.steps = int(tree["steps"])
+
     def params_tree(self) -> dict:
         """The parameters as the flax-named tree of the JAX trainer's
         ``params`` (numpy leaves; the spectral vectors are not in it)."""
@@ -351,19 +446,34 @@ class FusionTrainer:
         return ids, np.pad(ids, (0, batch_size - len(ids)), constant_values=ids[-1])
 
     @torch.no_grad()
-    def generate_ent_embeddings(self, batch_size: int = 512) -> torch.Tensor:
-        """All-entity M3AE cls pass (chunked) + one full-graph RGCN sweep."""
+    def generate_ent_embeddings(self, batch_size: int = 512,
+                                mesh: pmesh.Mesh | None = None) -> torch.Tensor:
+        """All-entity M3AE cls pass (chunked) + one full-graph RGCN sweep.
+
+        With a mesh (``mesh`` or the trainer's), each padded batch is split
+        over ``data`` (replicated when ``data`` does not divide it, as in
+        JAX) and the FFNs are tensor parallel over ``model``
+        (``parallel.mesh.shard_transformer_ffn``); the reps are gathered in
+        entity order and every rank runs the RGCN sweep."""
+        mesh = _check_mesh(mesh) or self.mesh
         m3ae = self.model.M3AEmodel
+        shard = None
+        if mesh is not None and mesh.n_data > 1 and batch_size % mesh.n_data == 0:
+            shard = pmesh.row_shard(mesh, batch_size)
         n = self.table.n_entities
         reps = []
-        for i in range(0, n, batch_size):
-            ids, ids_p = self._padded_ids(i, n, batch_size)
-            mm = self.store.generate_batch(ids_p, [], train=False)
-            patches = (self._put(extract_patches(mm["image"], self.cfg.patch_size))
-                       if "image" in mm else None)
-            cls_x, _ = m3ae.forward_representation(
-                patches, self._put(mm["text"]), self._put(mm["text_padding_mask"]))
-            reps.append(cls_x[:len(ids), 0, :])
+        with (pmesh.shard_transformer_ffn(m3ae, mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            for i in range(0, n, batch_size):
+                ids, ids_p = self._padded_ids(i, n, batch_size)
+                mm = self.store.generate_batch(
+                    ids_p if shard is None else shard.local(ids_p), [], train=False)
+                patches = (self._put(extract_patches(mm["image"], self.cfg.patch_size))
+                           if "image" in mm else None)
+                cls_x, _ = m3ae.forward_representation(
+                    patches, self._put(mm["text"]), self._put(mm["text_padding_mask"]))
+                cls_x = cls_x[:, 0, :]
+                reps.append((cls_x if shard is None else shard.gather(cls_x))[:len(ids)])
         edge_index, edge_type = edges_from_tasks(self.table.triples)
         return self.model.gcn_forward_encoder(
             torch.cat(reps), self._put(edge_index, torch.int64),

@@ -6,6 +6,20 @@ on the device (``ops/sampling.py``), scores them, takes the ranking loss
 with optional self-adversarial weights and L2 / L3 regularisation, and
 steps the optimizer: no host round trip. An epoch keeps its loss and the
 sampler's truncation counter on the device and reads them once.
+
+With a mesh (``mesh=``, a ``parallel.mesh.Mesh``; the JAX trainer's
+batch constraint over ``data``, kge.py:146-163): every rank draws the same
+batch from the identically seeded generator and scores its own rows over
+``data``; the ranking loss becomes this rank's share of the batch mean,
+the regularisers (computed alike on every rank over the whole batch or
+table) a ``1 / n_data`` share, and the gradients are SUMmed over the data
+group. With more than one ``model`` rank the entity tables (every key that
+starts with ``ent``) are split by rows over ``model``: a lookup is a masked
+local gather summed over the model group (vocab parallel), its gradient
+lands in the owner's rows only, and the optimizer's state is per shard.
+Filtered link prediction then scores each model rank's own entities and
+sums the counts of candidates that beat the true entity's score
+(``ops/ranking.py``), so the ranks are the replicated ones.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ from mre_tpu_torch.data.kg import DeviceKG, TripleTable
 from mre_tpu_torch.models import kge as kge_models
 from mre_tpu_torch.ops import losses as L
 from mre_tpu_torch.ops import ranking, sampling
+from mre_tpu_torch.parallel import mesh as pmesh
 
 
 def make_optimizer(params, opt_method: str, lr: float, lr_decay: float = 0.0,
@@ -93,20 +108,22 @@ class KGETrainer:
     (``cuda`` when None); batches are drawn from a generator on that device
     seeded with ``config.seed + 1``."""
 
-    def __init__(self, table: TripleTable, config: KGETrainerConfig, mesh=None,
-                 device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "KGETrainer: the mesh (data-parallel KGE step) is not ported "
-                "yet (ROADMAP.md §1 item 6); pass mesh=None")
-        self.device = resolve_device(device)
+    def __init__(self, table: TripleTable, config: KGETrainerConfig,
+                 mesh: pmesh.Mesh | None = None, device: str | torch.device | None = None):
+        if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh else device)
         self.table = table
         self.cfg = config
         self.model = kge_models.get(config.model)
         self.kg = DeviceKG.from_table(table, device=self.device)
         tree = self.model.init(torch.Generator().manual_seed(config.seed), table.n_entities,
                                table.n_relations, dim=config.dim, **config.init_kwargs)
-        self.module = kge_models.Params(tree).to(self.device)
+        # this rank's rows of the entity tables over ``model`` (None: whole)
+        self.ent_shard = (pmesh.table_shard(mesh, table.n_entities)
+                          if mesh is not None and mesh.n_model > 1 else None)
+        self.module = kge_models.Params(self._local(tree)).to(self.device)
         self.optimizer = make_optimizer(self.module.parameters(), config.opt_method,
                                         config.alpha, config.lr_decay)
         self.generator = torch.Generator(self.device).manual_seed(config.seed + 1)
@@ -114,17 +131,43 @@ class KGETrainer:
 
     @property
     def params(self) -> dict:
+        """name → tensor (this rank's rows of the entity tables under a
+        model axis)."""
         return self.module.tree()
 
+    def _local(self, tree: dict) -> dict:
+        """This rank's part of a whole parameter dict."""
+        if self.ent_shard is None:
+            return tree
+        return {k: self.ent_shard.local(v) if kge_models.is_entity_table(k) else v
+                for k, v in tree.items()}
+
+    def sharded_params(self) -> dict:
+        """``params`` with each split entity table as a
+        ``parallel.mesh.ShardedTable``: indexed with global ids, as the
+        models index a whole table."""
+        if self.ent_shard is None:
+            return self.params
+        return {k: pmesh.ShardedTable(v, self.ent_shard) if kge_models.is_entity_table(k)
+                else v for k, v in self.params.items()}
+
+    def full_params(self) -> dict:
+        """Every parameter whole (split tables gathered over ``model``)."""
+        return {k: v.full() if isinstance(v, pmesh.ShardedTable) else v
+                for k, v in self.sharded_params().items()}
+
     def load_params(self, tree: dict) -> None:
-        """Copy a parameter dict (tensors or arrays under the model's keys)
-        into the trainer, in place."""
+        """Copy a whole parameter dict (tensors or arrays under the model's
+        keys) into the trainer, in place (this rank's rows of a split
+        table)."""
         own = self.params
         if set(tree) != set(own):
             raise ValueError(f"parameter keys {sorted(tree)} vs the model's {sorted(own)}")
+        tree = self._local({k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+                            for k, v in tree.items()})
         with torch.no_grad():
             for k, v in tree.items():
-                own[k].copy_(v if torch.is_tensor(v) else torch.tensor(np.asarray(v)))
+                own[k].copy_(v)
 
     def _score_kwargs(self) -> dict:
         cfg = self.cfg
@@ -134,6 +177,17 @@ class KGETrainer:
 
     def loss_value(self, params: dict, batch: sampling.NegativeBatch) -> torch.Tensor:
         """The training loss of ``batch`` under ``params``."""
+        cfg = self.cfg
+        value = self._ranking_loss(params, batch)
+        if cfg.regul_rate:
+            value = value + cfg.regul_rate * self._regularization(params, batch)
+        if cfg.l3_regul_rate and cfg.model in ("distmult", "hole"):
+            value = value + cfg.l3_regul_rate * kge_models.distmult_l3_regularization(params)
+        return value
+
+    def _ranking_loss(self, params: dict, batch: sampling.NegativeBatch) -> torch.Tensor:
+        """The ranking loss alone: a mean over the batch's rows (plus a
+        constant), whatever the loss and its adversarial weights."""
         cfg, model = self.cfg, self.model
         kw = self._score_kwargs()
         if model.score_pos_neg is not None:
@@ -154,29 +208,61 @@ class KGETrainer:
         # with margin_flag train sigmoid / softplus on margin − distance
         # (TransE.py:60-89), and predict still ranks by plain distance
         if model.higher_is_better and cfg.loss == "margin":
-            value = loss_fn(-p, -n, **kwargs)
-        elif not model.higher_is_better and cfg.margin_flag \
+            return loss_fn(-p, -n, **kwargs)
+        if not model.higher_is_better and cfg.margin_flag \
                 and cfg.loss in ("sigmoid", "softplus"):
-            value = loss_fn(cfg.margin - p, cfg.margin - n, **kwargs)
-        else:
-            value = loss_fn(p, n, **kwargs)
+            return loss_fn(cfg.margin - p, cfg.margin - n, **kwargs)
+        return loss_fn(p, n, **kwargs)
+
+    def _regularization(self, params: dict, batch: sampling.NegativeBatch):
+        all_h = torch.cat([batch.h[:, None], batch.neg_h], 1)
+        all_t = torch.cat([batch.t[:, None], batch.neg_t], 1)
+        all_r = batch.r[:, None].expand_as(all_h)
+        return self.model.regularization(params, all_h, all_r, all_t)
+
+    def _mesh_loss(self, batch: sampling.NegativeBatch):
+        """(this rank's share of the step's loss, the global loss): the
+        ranking loss of the rank's rows over ``data`` weighted by their
+        share of the batch (it is a row mean), the regularisers over the
+        whole batch and table weighted by ``1 / n_data`` (TransR squares its
+        regulariser, so no row split would sum to it)."""
+        cfg, mesh = self.cfg, self.mesh
+        params = self.sharded_params()
+        n = batch.h.shape[0]
+        share = pmesh.row_shard(mesh, n).n_local / n
+        value = self._ranking_loss(params, pmesh.shard_batch(mesh, batch, n)) * share
+        extra = torch.zeros((), device=self.device)
         if cfg.regul_rate:
-            all_h = torch.cat([batch.h[:, None], batch.neg_h], 1)
-            all_t = torch.cat([batch.t[:, None], batch.neg_t], 1)
-            all_r = batch.r[:, None].expand_as(all_h)
-            value = value + cfg.regul_rate * model.regularization(params, all_h, all_r, all_t)
+            extra = extra + cfg.regul_rate * self._regularization(params, batch)
         if cfg.l3_regul_rate and cfg.model in ("distmult", "hole"):
-            value = value + cfg.l3_regul_rate * kge_models.distmult_l3_regularization(params)
-        return value
+            extra = extra + cfg.l3_regul_rate * self._l3_split()
+        value = value + extra / mesh.n_data
+        return value, pmesh.all_reduce_sum(value.detach(), mesh.data_group)
+
+    def _l3_split(self):
+        """``distmult_l3_regularization`` with the entity table's rows split
+        over ``model``: each rank's cube sum, summed over the group."""
+        ent, rel = self.params["ent"], self.params["rel"]
+        cubes = (ent.abs() ** 3).sum()
+        if self.ent_shard is not None:
+            cubes = pmesh.all_reduce_sum(cubes, self.ent_shard.group, replicated_grad=True)
+        return cubes + (rel.abs() ** 3).sum()
 
     def step_with_batch(self, batch: sampling.NegativeBatch) -> torch.Tensor:
-        """One optimizer step on a given batch; returns the loss (0-dim, on
-        the device, detached)."""
+        """One optimizer step on a given batch (the whole batch, on every
+        rank of a mesh); returns the loss (0-dim, on the device, detached;
+        the global loss under a mesh)."""
         self.optimizer.zero_grad(set_to_none=True)
-        value = self.loss_value(self.params, batch)
+        if self.mesh is None:
+            value = self.loss_value(self.params, batch)
+            reported = value.detach()
+        else:
+            value, reported = self._mesh_loss(batch)
         value.backward()
+        if self.mesh is not None:
+            pmesh.allreduce_grads(self.module.parameters(), self.mesh.data_group)
         self.optimizer.step()
-        return value.detach()
+        return reported
 
     def sample(self) -> sampling.NegativeBatch:
         cfg = self.cfg
@@ -213,7 +299,8 @@ class KGETrainer:
                             "overflow_truncated": int(stats["overflow_truncated"])},
                            step=epoch)
             if save_steps and checkpoint_dir and (epoch + 1) % save_steps == 0:
-                ckpt.save_checkpoint(f"{checkpoint_dir}/{cfg.model}-{epoch}.ckpt", self.params)
+                ckpt.save_checkpoint(f"{checkpoint_dir}/{cfg.model}-{epoch}.ckpt",
+                                     self.full_params(), mesh=self.mesh)
         return last
 
     # -- evaluation ------------------------------------------------------
@@ -230,7 +317,11 @@ class KGETrainer:
                     model,
                     score_all_tails=functools.partial(kge_models.transr_all_tails, **kw),
                     score_all_heads=functools.partial(kge_models.transr_all_heads, **kw))
-        return ranking.make_predict_all(model, filt)
+        if self.ent_shard is None:
+            return ranking.make_predict_all(model, filt)
+        return ranking.shard_predictors(
+            *ranking.make_predict_all(model, filt, n_candidates=self.ent_shard.n_local),
+            self.ent_shard)
 
     def filter_kg(self, filter_table: TripleTable | None) -> DeviceKG:
         if filter_table is None:
@@ -255,4 +346,5 @@ class KGETrainer:
         filt = self.filter_kg(filter_table)
         all_tails, all_heads = self.predictors(filt)
         return ranking.link_prediction(all_tails, all_heads, self.params, filt, test_triples,
-                                       chunk=chunk, type_constraints=type_constraints)
+                                       chunk=chunk, type_constraints=type_constraints,
+                                       shard=self.ent_shard)

@@ -25,8 +25,17 @@ takes the unseen relation vectors from the distill predictor
 ``load`` write the Extractor, the Discriminator (with its spectral vectors)
 and the generator (the fusion parameters) as flax-named checkpoints
 (core/checkpoint.py). ``evaluate(compute_dtype="bfloat16")`` ranks with
-the L/R tables and a bfloat16 copy of the Extractor, as JAX does. ``mesh``
-is not ported.
+the L/R tables and a bfloat16 copy of the Extractor, as JAX does.
+
+Data parallel (``mesh=``, a ``parallel.mesh.Mesh``): ``d_step``,
+``g_step`` and ``train_gan`` split the GAN batch's rows over ``data``.
+Every rank draws the full batch's noise, α and dropout masks and keeps its
+rows; the gradient penalty stays per sample; the hinge and class terms
+become this rank's sum over the global row count; the visual pivot's
+per-class sums and counts are summed over the data group (with their
+gradient); the gradients are SUMmed before every rank steps its optimizer.
+``evaluate(mesh=)`` ranks the ``rel_shared`` chunks data parallel (the JAX
+package's only mesh path; any other path raises its ``ValueError``).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.extractor import Discriminator, Extractor
 from mre_tpu_torch.models.initializers import init_weights
 from mre_tpu_torch.models.transformer import DropoutMasks, compute_dtype as torch_dtype
+from mre_tpu_torch.parallel import mesh as pmesh
 from mre_tpu_torch.zsl.episodes import EpisodeSampler, SymbolTable, build_connections
 
 G_PARAM_KEYS = ("generate_fc_layer", "des_rel_map_layer1",
@@ -100,6 +110,16 @@ def piecewise_constant_schedule(init_value: float, boundaries_and_scales: dict):
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _global_info(info: dict, rows) -> dict:
+    """Detached step terms; a data-parallel rank's (its share of each) are
+    summed over the data group, so every rank returns the global values."""
+    info = {k: v.detach() for k, v in info.items()}
+    if rows is None:
+        return info
+    total = pmesh.all_reduce_sum(torch.stack(list(info.values())), rows.group)
+    return dict(zip(info, total.unbind()))
 
 
 def _history(hist: list) -> list:
@@ -173,17 +193,35 @@ class ZSLModule:
         return (self.connections[left], self.degrees[left],
                 self.connections[right], self.degrees[right])
 
-    def _dropout(self, draws: dict | None) -> DropoutMasks:
+    def _dropout(self, draws: dict | None, rows=None) -> DropoutMasks:
         if draws is not None and "dropout" in draws:
-            return DropoutMasks(masks=draws["dropout"])
-        return DropoutMasks(generator=self._gen)
+            return DropoutMasks(masks=draws["dropout"], rows=rows)
+        return DropoutMasks(generator=self._gen, rows=rows)
 
-    def _draw(self, draws: dict | None, key: str, shape, sample=torch.randn) -> torch.Tensor:
+    def _draw(self, draws: dict | None, key: str, shape, sample=torch.randn,
+              rows=None) -> torch.Tensor:
         """``draws[key]`` if given, else ``sample(shape)`` from the module's
-        generator."""
+        generator; with ``rows`` (a ``RowShard``) the rank's rows of it."""
         if draws is not None and key in draws:
-            return self._put(_host(draws[key]), torch.float32)
-        return sample(shape, generator=self._gen, device=self.device)
+            x = self._put(_host(draws[key]), torch.float32)
+        else:
+            x = sample(shape, generator=self._gen, device=self.device)
+        return x if rows is None else rows.local(x)
+
+    def _gan_rows(self, batch, mesh):
+        """The rank's ``RowShard`` of a GAN batch and the batch cut to it
+        (None and the batch itself without a data-parallel mesh)."""
+        if mesh is None or mesh.n_data == 1:
+            return None, batch
+        rows = pmesh.row_shard(mesh, len(batch[1]))
+        return rows, tuple(np.asarray(a)[rows.rows] for a in batch)
+
+    def _weights(self, mask, rows=None):
+        """Row weights and their global sum (at least 1; summed over the
+        data group, without a gradient, for a data-parallel rank)."""
+        w = self._put(mask, torch.float32)
+        total = w.sum() if rows is None else pmesh.all_reduce_sum(w.sum(), rows.group)
+        return w, torch.clamp(total, min=1.0)
 
     def update_embed(self, ent_embs, rel_embs):
         """Refresh the frozen symbol table from fusion-learner embeddings
@@ -312,22 +350,21 @@ class ZSLModule:
         return (pad(rel_ids), pad(query, 2), pad(q_l), pad(q_r), pad(false, 2),
                 pad(f_l), pad(f_r), pad(labels), mask)
 
-    def _weights(self, mask):
-        w = self._put(mask, torch.float32)
-        return w, torch.clamp(w.sum(), min=1.0)
-
-    def d_step(self, fusion_trainer, batch, draws: dict | None = None) -> dict:
+    def d_step(self, fusion_trainer, batch, draws: dict | None = None,
+               mesh: pmesh.Mesh | None = None) -> dict:
         """One critic step (zsl/module.py:186-236, :422-435). ``draws`` may
         give ``noise`` [B, noise_dim], ``alpha`` [B, 1] and ``dropout`` (the
-        20 masks of the real and the negative Extractor passes). Returns
-        ``info`` as 0-d device tensors."""
+        20 masks of the real and the negative Extractor passes), each for
+        the whole batch. With ``mesh`` the batch's rows are split over
+        ``data``. Returns ``info`` (global values) as 0-d device tensors."""
         cfg = self.cfg
+        B = len(batch[1])
+        rows, batch = self._gan_rows(batch, mesh)
         rel_ids, query, q_l, q_r, false, f_l, f_r, labels, mask = batch
-        B = len(query)
-        noise = self._draw(draws, "noise", (B, cfg.noise_dim))
+        noise = self._draw(draws, "noise", (B, cfg.noise_dim), rows=rows)
         with torch.no_grad():
             fake = fusion_trainer.generate(rel_ids, noise)
-            drop = self._dropout(draws)
+            drop = self._dropout(draws, rows)
             query, false = self._put(query), self._put(false)
             q_meta, f_meta = self._meta(q_l, q_r), self._meta(f_l, f_r)
             real, _ = self.extractor(self.symbol_table, query, query, q_meta, q_meta,
@@ -335,9 +372,9 @@ class ZSLModule:
             neg, _ = self.extractor(self.symbol_table, false, false, f_meta, f_meta,
                                     False, drop)
             drop.check_all_used()
-        alpha = self._draw(draws, "alpha", (B, 1), torch.rand)
-        w, wsum = self._weights(mask)
-        idx = torch.arange(B, device=self.device)
+        alpha = self._draw(draws, "alpha", (B, 1), torch.rand, rows=rows)
+        w, wsum = self._weights(mask, rows)
+        idx = torch.arange(len(query), device=self.device)
         labels = self._put(labels)
         D, centroid = self.discriminator, self.centroid_matrix
 
@@ -364,11 +401,13 @@ class ZSLModule:
             group["lr"] = self.d_schedule(self.d_steps)
         self.opt_D.zero_grad(set_to_none=True)
         total.backward(inputs=list(D.parameters()))
+        if rows is not None:
+            pmesh.allreduce_grads(D.parameters(), rows.group)
         self.opt_D.step()
         self.d_steps += 1
         info = dict(loss_D=total, D_real=loss_real, D_fake=loss_fake,
                     D_real_class=loss_real_cls, D_fake_class=loss_fake_cls, gp=gp)
-        return {k: v.detach() for k, v in info.items()}
+        return _global_info(info, rows)
 
     def reset_g_optimizer(self, fusion_trainer):
         """A fresh adam over the generator head of ``fusion_trainer``'s
@@ -379,29 +418,33 @@ class ZSLModule:
                                       betas=(0.5, 0.9), eps=1e-8)
         self.g_steps = 0
 
-    def g_step(self, fusion_trainer, batch, draws: dict | None = None) -> dict:
+    def g_step(self, fusion_trainer, batch, draws: dict | None = None,
+               mesh: pmesh.Mesh | None = None) -> dict:
         """One generator step (zsl/module.py:437-521) on the head that
         ``reset_g_optimizer`` took. ``draws`` may give ``noise`` and
         ``dropout`` (the 10 masks of the negative Extractor pass). The
         description encoding builds no graph; the power step runs on the
-        head's three SN layers. Returns ``info`` as 0-d device tensors."""
+        head's three SN layers. With ``mesh`` the batch's rows are split
+        over ``data`` (the description pass encodes the rank's rows only).
+        Returns ``info`` (global values) as 0-d device tensors."""
         if self.opt_G is None:
             raise RuntimeError("g_step: call reset_g_optimizer(fusion_trainer) first")
         cfg = self.cfg
+        B = len(batch[1])
+        rows, batch = self._gan_rows(batch, mesh)
         rel_ids, query, q_l, q_r, false, f_l, f_r, labels, mask = batch
-        B = len(query)
-        noise = self._draw(draws, "noise", (B, cfg.noise_dim))
+        noise = self._draw(draws, "noise", (B, cfg.noise_dim), rows=rows)
         D, centroid = self.discriminator, self.centroid_matrix
         with torch.no_grad():
-            drop = self._dropout(draws)
+            drop = self._dropout(draws, rows)
             false = self._put(false)
             f_meta = self._meta(f_l, f_r)
             neg, _ = self.extractor(self.symbol_table, false, false, f_meta, f_meta,
                                     False, drop)
             drop.check_all_used()
             _, _, neg_cls = D(neg, centroid)
-        w, wsum = self._weights(mask)
-        idx = torch.arange(B, device=self.device)
+        w, wsum = self._weights(mask, rows)
+        idx = torch.arange(len(query), device=self.device)
         labels = self._put(labels)
 
         sample = fusion_trainer.generate(rel_ids, noise, update_sn=True)
@@ -416,31 +459,43 @@ class ZSLModule:
         sums = torch.zeros(L + 1, sample.shape[1], device=self.device).index_add(
             0, seg, sample * w[:, None])
         cnts = torch.zeros(L + 1, device=self.device).index_add(0, seg, w)
+        if rows is not None:
+            sums = pmesh.all_reduce_sum(sums, rows.group)
+            cnts = pmesh.all_reduce_sum(cnts, rows.group)
         means = sums[:L] / torch.clamp(cnts[:L, None], min=1.0)
         dist = torch.sqrt(torch.clamp(((means - centroid) ** 2).sum(1), min=1e-12))
         loss_vp = torch.where(cnts[:L] > 0, dist, torch.zeros_like(dist)).sum()
         loss_vp = loss_vp / cfg.gan_batch_rela
 
-        total = loss_fake + loss_cls + cfg.vp_weight * loss_vp
+        # the pivot term is computed alike on every rank: each takes a
+        # 1/n_data share, and the summed gradients give the global one
+        n_data = 1 if rows is None else mesh.n_data
+        total = loss_fake + loss_cls + cfg.vp_weight * loss_vp / n_data
         grads = torch.autograd.grad(total, self.g_params)
         for p, g in zip(self.g_params, grads):
             p.grad = g
+        if rows is not None:
+            pmesh.allreduce_grads(self.g_params, rows.group)
         for group in self.opt_G.param_groups:
             group["lr"] = self.g_schedule(self.g_steps)
         self.opt_G.step()
         self.opt_G.zero_grad(set_to_none=True)
         self.g_steps += 1
-        info = dict(loss_G=total, G_fake=loss_fake, G_class=loss_cls, G_VP=loss_vp)
-        return {k: v.detach() for k, v in info.items()}
+        info = dict(loss_G=total, G_fake=loss_fake, G_class=loss_cls,
+                    G_VP=loss_vp / n_data)
+        return _global_info(info, rows)
 
     def train_gan(self, fusion_trainer, train_times: int | None = None,
                   log_every: int | None = None, pretrain_steps: int | None = None,
-                  skip_pretrain: bool = False, skip_centroids: bool = False, draws=None):
+                  skip_pretrain: bool = False, skip_centroids: bool = False, draws=None,
+                  mesh: pmesh.Mesh | None = None):
         """Pretrain the Extractor, compute the centroids, then alternate D
         and G steps; the generator head is trained in place in the fusion
         model. ``skip_centroids`` keeps the centroids of the last
         ``compute_centroids`` call (so the loop can be timed alone). ``draws``, if given, yields each step's draws in step order
-        (D steps, then G steps, per epoch). Returns (D history, G history),
+        (D steps, then G steps, per epoch). With ``mesh`` the D and G
+        steps split each GAN batch over ``data`` (pretraining and the
+        centroids run alike on every rank). Returns (D history, G history),
         lists of dicts of floats; the histories stay on the device until a
         log window or the end."""
         cfg = self.cfg
@@ -458,11 +513,11 @@ class ZSLModule:
             for _ in range(cfg.D_epoch):
                 batch = self._padded_gan_batch()
                 d_hist.append(self.d_step(fusion_trainer, batch,
-                                          None if draws is None else next(draws)))
+                                          None if draws is None else next(draws), mesh))
             for _ in range(cfg.G_epoch):
                 batch = self._padded_gan_batch()
                 g_hist.append(self.g_step(fusion_trainer, batch,
-                                          None if draws is None else next(draws)))
+                                          None if draws is None else next(draws), mesh))
             if log_every and (epoch + 1) % log_every == 0:
                 dw = torch.stack([h["loss_D"] for h in d_hist[-log_every:]]).mean().item()
                 gw = torch.stack([h["loss_G"] for h in g_hist[-log_every:]]).mean().item()
@@ -542,11 +597,17 @@ class ZSLModule:
         are computed in float32 and cast, every Extractor parameter is cast
         (the LayerNorm's too) and the pair embeddings go back to float32
         before ranking, on all three paths. The generator's text pass runs
-        in the fusion model's own dtype."""
+        in the fusion model's own dtype.
+
+        ``mesh`` (``rel_shared`` only, as in JAX) ranks the query chunks
+        data parallel over the mesh's ``data`` axis: identical ranks."""
         if eval_path not in EVAL_PATHS:
             raise ValueError(f"eval_path {eval_path!r} not in {EVAL_PATHS}")
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded evaluation is not ported")
+        if mesh is not None and eval_path != "rel_shared":
+            raise ValueError("mesh-sharded evaluation is supported for "
+                             "eval_path='rel_shared' only")
+        if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
         cdt = torch_dtype(compute_dtype)
         test_candidates = loaders.load_candidates(self.data_path, mode)
         ex = self.extractor
@@ -569,7 +630,7 @@ class ZSLModule:
                 lambda heads, shared: ex.embed_pairs_rel_shared(L, R, heads, shared),
                 lambda heads, trues: ex.embed_pairs_factored(L, R, heads, trues),
                 gen_rel_vecs, query_chunk=query_chunk, verbose=verbose,
-                return_ranks=return_ranks, device=self.device)
+                return_ranks=return_ranks, device=self.device, mesh=mesh)
         block = None
         if eval_path == "head_shared":
             def block(heads, cands):

@@ -109,7 +109,9 @@ def test_lr_decay_needs_adagrad_and_mesh_is_refused(kg_data):
     tri, n_ent = kg_data
     with pytest.raises(ValueError, match="lr_decay"):
         make_optimizer([torch.zeros(2, requires_grad=True)], "adam", 0.1, lr_decay=0.1)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the mesh is ported (tests/test_torch_port_mesh_kge.py); what is not a
+    # parallel.mesh.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         KGETrainer(TripleTable.build(tri, n_ent, 1), KGETrainerConfig(), mesh=object(),
                    device="cpu")
 

@@ -134,13 +134,14 @@ def test_other_eval_paths_are_refused(slice_pair):
 @pytest.mark.parametrize("option", [dict(mesh=object()),
                                     dict(compute_dtype="bfloat16")])
 def test_unported_evaluate_options_are_refused(slice_pair, option):
-    """The mesh is still refused; ``compute_dtype="bfloat16"`` (ported)
-    ranks the same queries with a bfloat16 Extractor copy, leaving the
-    module's own parameters float32 (its ranks against JAX's:
-    tests/test_torch_port_options_bf16.py)."""
+    """A mesh on a path other than ``rel_shared`` raises JAX's ValueError
+    (zsl/module.py:598-600; the mesh itself: tests/test_torch_port_mesh.py);
+    ``compute_dtype="bfloat16"`` (ported) ranks the same queries with a
+    bfloat16 Extractor copy, leaving the module's own parameters float32
+    (its ranks against JAX's: tests/test_torch_port_options_bf16.py)."""
     _, _, tf, tz = slice_pair
     if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="eval_path='rel_shared' only"):
             tz.evaluate(tf, verbose=False, **option)
         return
     ref = tz.evaluate(tf, verbose=False, query_chunk=8, eval_path="rel_shared",
@@ -166,13 +167,17 @@ def test_entry_points_need_a_card_unless_told(slice_pair, monkeypatch):
 
 def test_port_imports_no_jax_flax_pil_or_mre_tpu():
     """In a fresh interpreter (tests/conftest.py imports jax here): import
-    every port module and chip_smoke.py, then look at sys.modules."""
+    every port module (the parallel layer and its dry run among them) and
+    chip_smoke.py, then look at sys.modules."""
     code = r"""
 import importlib, pkgutil, sys
 import mre_tpu_torch
 for m in pkgutil.walk_packages(mre_tpu_torch.__path__, "mre_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for name in ("mre_tpu_torch.parallel.mesh", "mre_tpu_torch.tools.dryrun_multichip",
+             "mre_tpu_torch.utils.build"):
+    assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "PIL")
              or n == "mre_tpu" or n.startswith("mre_tpu."))
