@@ -15,7 +15,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    out from shapes (float32 held to the TF32 tensor-core peak) and the
    kernel's share of it. ``attention_fwd`` at head_dim 64 stands for the TPU's
    ``_attention_kernel``, at head_dim 32 (the decoder) for
-   ``_attention_kernel_packed``;
+   ``_attention_kernel_packed``. The learnability path's short sequences
+   (phase 10) are held too: N 17 and 33 at head_dim 64, N 33 at 32;
 3. serving slice — a synthetic ZSL dataset (2048 entities, 32 relations, 4
    unseen) through the M3AE-small model (emb 384, depth 12, 6 heads of 64,
    image 256 / patch 16, 64 text and 320 description tokens; GCN dim 200,
@@ -134,7 +135,23 @@ Phases (each raises, and the script exits non-zero, on any failure):
    all-reduce (the 1-rank world's over its own one-rank NCCL group: its
    step has no collective), sweep, GAN and ranking times per world. Every check of the
    phase runs and prints before its failures are raised;
-10. one JSON line of kernels (the float32 and the bfloat16 instantiations,
+10. trained weights — ``tools/zsl_learnability.main`` in process at the
+   trained settings of the JAX package's certification
+   (experiments/results/bf16_cert.json: 6 fusion epochs, 400 Extractor
+   pretraining steps, 400 GAN epochs; ``tiny4``: M3AE-small's widths at
+   depth 4 / 4, image 32 / patch 8, 16 text and 16 description tokens) on
+   the learnable fixture, with ``--cert_out chiprun_out/learnability_cert.json``:
+   exact launches (3 × depth per fusion step, dec_depth per step, depth per
+   sweep batch, 2 × depth per GAN epoch, depth × 3 unseen relations per
+   evaluation; none in pretraining or the centroids); float32 ``factored``
+   Hits@10 at least 0.5 on the 59 unseen-relation queries (random 0.333);
+   the trained module through the kernel and through the plain attention,
+   at least 0.95 of the float32 ranks equal and none moved by more than 1
+   on each path (bf16 reported); each bf16 path against ``f32_factored`` at
+   least 0.88 equal with |d Hits@10| at most 0.05; stage seconds and ms per
+   fusion step, pretrain step and GAN epoch. Every check prints before the
+   failures are raised together;
+11. one JSON line of kernels (the float32 and the bfloat16 instantiations,
    each with its launches on every path, the mesh's per rank), the card
    line, and the result line.
 
@@ -279,11 +296,13 @@ def serving_mask(B: int, N: int, n_text: int, gen, mostly_pad: bool) -> torch.Te
     return pad
 
 
-def attention_case(name, B, H, N, hd, dtype, mask_kind, gen, timed=False):
+def attention_case(name, B, H, N, hd, dtype, mask_kind, gen, timed=False, n_text=None):
+    """``n_text``: the text tokens at the end of an entity sequence (default
+    min(64, N − 1))."""
     dev = torch.device("cuda")
     q, k, v = (torch.randn(B, H, N, hd, generator=gen).to(dev, dtype) for _ in range(3))
     if mask_kind in ("entity", "all_pad_row"):
-        pad = serving_mask(B, N, min(64, N - 1), gen, mostly_pad=False)
+        pad = serving_mask(B, N, n_text or min(64, N - 1), gen, mostly_pad=False)
         if mask_kind == "all_pad_row":
             pad[0] = 1.0
         pad = pad.to(dev)
@@ -350,6 +369,27 @@ def phase_kernels():
         recs.append(attention_case("decoder_all_pad_row", 4, 16, 321, 32, dtype,
                                    "all_pad_row", gen))
         recs.append(attention_case("decoder_no_mask", 8, 16, 321, 32, dtype, "none", gen))
+    # the learnability path (phase 10; tiny4: 6 heads of 64, the decoder 16
+    # of 32) at its short sequences, from a generator of its own so the cases
+    # above keep their inputs: [cls | 8 kept patches | 8 kept text] = 17 in
+    # the masked encoder, [cls | 16] = 17 for the descriptions (the edges of
+    # a step, the GAN's 64 rows × 3 relations), [cls | 16 patches | 16 text]
+    # = 33 in the entity sweep, the unmasked encoder and the decoder. At N 17
+    # one key tile is mostly past N.
+    gen = torch.Generator().manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        recs.append(attention_case("learn_masked_n17", 40, 6, 17, 64, dtype, "entity", gen,
+                                   timed=True, n_text=8))
+        recs.append(attention_case("learn_edges_n17", 32, 6, 17, 64, dtype, "relation", gen,
+                                   timed=True))
+        recs.append(attention_case("learn_gan_n17", 192, 6, 17, 64, dtype, "relation", gen,
+                                   timed=True))
+        recs.append(attention_case("learn_sweep_n33", 64, 6, 33, 64, dtype, "entity", gen,
+                                   timed=True, n_text=16))
+        recs.append(attention_case("learn_all_pad_row_n17", 4, 6, 17, 64, dtype, "all_pad_row",
+                                   gen, n_text=8))
+        recs.append(attention_case("learn_decoder_n33", 40, 16, 33, 32, dtype, "entity", gen,
+                                   timed=True, n_text=16))
     return recs
 
 
@@ -518,7 +558,7 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
     log(f"[slice] kernel vs plain: max|d| ent {d_ent:.3e} rel {d_rel:.3e} "
         f"|d mrr| {d_mrr:.3e} ranks equal {rank_agree:.4f}")
     # float32 through 12 blocks; the online softmax sums in another order than
-    # the plain softmax and index_add_ atomics reorder the RGCN sums
+    # the plain softmax
     if d_ent > 1e-3 or d_rel > 1e-3 or d_mrr > 1e-3:
         raise AssertionError(f"kernel path disagrees with the plain path: "
                              f"ent {d_ent} rel {d_rel} mrr {d_mrr}")
@@ -1793,6 +1833,200 @@ def phase_mesh(work_dir: str, cfg: dict = MESH, card: str = "no card",
     return out
 
 
+# -- phase 10: the learnability run on trained weights ---------------------------
+
+
+# tools/zsl_learnability at the trained settings of the JAX package's own
+# certification (experiments/results/bf16_cert.json: 6 epochs, 400 pretraining
+# steps, 400 GAN epochs) on its learnable fixture: 59 unseen-relation queries
+# of 30 candidates. The gates, set before the first run on the card:
+# float32 factored Hits@10 at least 0.5 (random: 10 / 30); the trained module
+# through the kernel and through the plain attention, on each float32 path, at
+# least 0.95 of the ranks equal and none moved by more than 1; each bf16 path
+# against f32_factored at least 0.88 equal (the JAX run's least: 53 / 59 =
+# 0.898) and Hits@10 within 0.05.
+LEARN = dict(epochs=6, pretrain_steps=400, train_times=400, seed=0)
+LEARN_HITS10_MIN = 0.5
+LEARN_RANK_EQUAL_MIN, LEARN_RANK_MAX_DIFF = 0.95, 1
+CERT_RANK_MATCH_MIN, CERT_D_HITS10_MAX = 0.88, 0.05
+
+
+def phase_learnability(work_dir: str, cfg: dict = LEARN, card: str = "no card",
+                       device: str = "cuda") -> dict:
+    """``tools/zsl_learnability.main`` in process with ``--cert_out``: the
+    whole pipeline trained on the learnable fixture, then certified on every
+    (dtype × eval path). Exact launch counts of the run (from the
+    configuration), learnability, the trained module through the kernel and
+    the plain attention, bf16 against float32, and stage times. Every check
+    prints before the failures are raised together."""
+    from mre_tpu_torch.tools import zsl_learnability as zl
+
+    gates = Gates("trained")
+    t_phase = time.perf_counter()
+    stages, held = [], {}
+    cert_path = os.path.join(OUT_DIR, "learnability_cert.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    def stage(what):
+        """Seconds and kernel launches of each call (synchronised)."""
+        def wrap(fn):
+            def call(*a, **kw):
+                sync()
+                before = dict(attention.LAUNCHES_BY_DTYPE)
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync()
+                stages.append(dict(what=what, s=time.perf_counter() - t0, launches={
+                    k: v - before[k] for k, v in attention.LAUNCHES_BY_DTYPE.items()
+                    if v != before[k]}))
+                return out
+            return call
+        return wrap
+
+    def keep(fn):                  # the first evaluation's module and trainer
+        def call(self, fusion_trainer, *a, **kw):
+            held.setdefault("zsl", self)
+            held.setdefault("fusion", fusion_trainer)
+            return fn(self, fusion_trainer, *a, **kw)
+        return call
+
+    argv = ["--epochs", str(cfg["epochs"]), "--pretrain_steps", str(cfg["pretrain_steps"]),
+            "--train_times", str(cfg["train_times"]), "--seed", str(cfg["seed"]),
+            "--out", work_dir, "--cert_out", cert_path, "--device", device]
+    with contextlib.ExitStack() as stack:
+        for owner, name in ((FusionTrainer, "train_epoch"),
+                            (FusionTrainer, "generate_ent_embeddings"),
+                            (FusionTrainer, "generate_rel_embeddings"),
+                            (ZSLModule, "pretrain_extractor"),
+                            (ZSLModule, "compute_centroids"), (ZSLModule, "train_gan")):
+            stack.enter_context(wrapped(owner, name, stage(name)))
+        stack.enter_context(wrapped(ZSLModule, "evaluate",
+                                    lambda fn: keep(stage("evaluate")(fn))))
+        reset_launches()
+        t0 = time.perf_counter()
+        result = zl.main(argv)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in attention.LAUNCHES_BY_DTYPE.items()}
+    with open(cert_path) as f:
+        cert = json.load(f)
+    zsl, fusion = held["zsl"], held["fusion"]
+
+    # exact launches, from the configuration: per fusion step 3 encoder
+    # passes × depth at head_dim 64 (masked joint, N 17; unmasked joint, N
+    # 33; edge descriptions, N 17) and the decoder × dec_depth at head_dim
+    # 32 (N 33); the entity sweep in batches of 64 and the relation sweep in
+    # batches of 16 (zsl_learnability.py), D_epoch + G_epoch generator
+    # passes per GAN epoch, and n_unseen generator passes per evaluation
+    # (1 + the 6 certification paths; a bf16 evaluation's generator runs in
+    # the trainer's float32). Pretraining and the centroids launch none.
+    m3ae = fusion.model.M3AEmodel.cfg
+    zc = zsl.cfg
+    on_card = fusion.device.type == "cuda"
+    steps = cfg["epochs"] * fusion.steps_per_epoch
+    n_unseen = len(load_candidates(zsl.data_path, "test"))
+    n_evals = sum(r["what"] == "evaluate" for r in stages)
+    sweeps = (math.ceil(fusion.table.n_entities / 64) + math.ceil(fusion.table.n_relations / 16))
+    per = dict(fusion_steps=3 * m3ae.depth * steps, sweeps=m3ae.depth * sweeps,
+               gan=m3ae.depth * cfg["train_times"] * (zc.D_epoch + zc.G_epoch),
+               evaluations=m3ae.depth * n_unseen * n_evals)
+    expect = {k: 0 for k in attention.LAUNCHES_BY_DTYPE}
+    expect["attention_fwd.float32"] = on_card * sum(per.values())
+    expect["attention_fwd_packed.float32"] = on_card * m3ae.dec_depth * steps
+    log(f"[trained] launches {launches}; expected {expect} = depth {m3ae.depth} × (3 × "
+        f"{steps} steps + {sweeps} sweep batches + {cfg['train_times']} GAN epochs × "
+        f"{zc.D_epoch + zc.G_epoch} + {n_evals} evaluations × {n_unseen} relations) and "
+        f"dec_depth {m3ae.dec_depth} × {steps} steps")
+    gates.check(n_evals == 7, f"{n_evals} evaluations, expected 1 + 6 certification paths")
+    gates.check(launches == expect, f"launches {launches}, expected {expect}")
+
+    # learnability
+    f32 = cert["paths"]["f32_factored"]
+    random_hits10 = 10 / cert["n_candidates"]
+    log(f"[trained] f32_factored on {cert['n_queries']} unseen-relation queries: Hits@10 "
+        f"{f32['hits10']:.4f} (random {random_hits10:.4f}, lift "
+        f"{f32['hits10'] / random_hits10:.2f}x), Hits@5 {f32['hits5']:.4f}, Hits@1 "
+        f"{f32['hits1']:.4f}, MRR {f32['mrr']:.4f}; the run's own evaluation "
+        f"(head_shared) Hits@10 {result['hits10']:.4f} MRR {result['mrr']:.4f}")
+    gates.check(cert["n_queries"] == 59, f"{cert['n_queries']} queries, expected 59")
+    gates.check(f32["hits10"] >= LEARN_HITS10_MIN,
+                f"f32_factored Hits@10 {f32['hits10']} < {LEARN_HITS10_MIN}")
+
+    # bf16 against float32, from the certification
+    for key, c in cert["paths"].items():
+        if key == "f32_factored":
+            continue
+        log(f"[trained] cert {key}: Hits@10 {c['hits10']:.4f} MRR {c['mrr']:.4f}; vs "
+            f"f32_factored ranks equal {c['rank_match_vs_f32_factored']:.4f}, max |d rank| "
+            f"{c['max_abs_rank_delta']}, d_hits10 {c['d_hits10']:+.6f}, d_mrr "
+            f"{c['d_mrr']:+.6f} ({c['seconds']} s)")
+        if key.startswith("bf16"):
+            gates.check(c["rank_match_vs_f32_factored"] >= CERT_RANK_MATCH_MIN,
+                        f"{key} ranks equal {c['rank_match_vs_f32_factored']} < "
+                        f"{CERT_RANK_MATCH_MIN}")
+            gates.check(abs(c["d_hits10"]) <= CERT_D_HITS10_MAX,
+                        f"{key} |d_hits10| {abs(c['d_hits10'])} > {CERT_D_HITS10_MAX}")
+
+    # the trained module through the kernel and through the plain attention
+    def ranks(dtype, path):
+        return zsl.evaluate(fusion, mode="test", verbose=False, query_chunk=16,
+                            compute_dtype=dtype, eval_path=path, return_ranks=True)["ranks"]
+
+    combos = [(d, p) for d in ("float32", "bfloat16") for p in EVAL_PATHS]
+    kernel = {c: ranks(*c) for c in combos}
+    reset_launches()
+    with plain_attention(fusion):
+        plain = {c: ranks(*c) for c in combos}
+    plain_launches = {k: v for k, v in attention.LAUNCHES_BY_DTYPE.items() if v}
+    gates.check(not plain_launches, f"the plain attention launched {plain_launches}")
+    agree = {f"{d} {p}": rank_agreement(kernel[(d, p)], plain[(d, p)]) for d, p in combos}
+    log("[trained] kernel vs plain on the trained module, ranks equal / max |d rank|: "
+        + "  ".join(f"{k} {eq:.4f} / {dm}" for k, (eq, dm) in agree.items()))
+    for (d, p), (eq, dm) in zip(combos, agree.values()):
+        if d == "float32":
+            gates.check(eq >= LEARN_RANK_EQUAL_MIN and dm <= LEARN_RANK_MAX_DIFF,
+                        f"float32 {p} kernel vs plain: {eq} equal, max |d| {dm}")
+
+    # stage times
+    def total(what):
+        return sum(r["s"] for r in stages if r["what"] == what)
+
+    epochs_s = [r["s"] for r in stages if r["what"] == "train_epoch"]
+    pretrain_s, centroids_s = total("pretrain_extractor"), total("compute_centroids")
+    gan_loop_s = total("train_gan") - pretrain_s - centroids_s
+    times = dict(
+        run_s=run_s, epochs_s=epochs_s,
+        fusion_step_ms=sum(epochs_s) / steps * 1e3,
+        fusion_step_ms_after_first_epoch=(sum(epochs_s[1:]) / (steps - fusion.steps_per_epoch)
+                                          * 1e3 if len(epochs_s) > 1 else None),
+        ent_sweep_s=total("generate_ent_embeddings"),
+        rel_sweep_s=total("generate_rel_embeddings"),
+        pretrain_step_ms=pretrain_s / cfg["pretrain_steps"] * 1e3, centroids_s=centroids_s,
+        gan_epoch_ms=gan_loop_s / cfg["train_times"] * 1e3,
+        evaluate_s=[r["s"] for r in stages if r["what"] == "evaluate"])
+    times["setup_s"] = run_s - sum(r["s"] for r in stages
+                                   if r["what"] not in ("pretrain_extractor",
+                                                        "compute_centroids"))
+    log(f"[trained] stages ({card}): run {run_s:.1f} s = setup and dataset "
+        f"{times['setup_s']:.1f} s + {len(epochs_s)} fusion epochs "
+        f"{sum(epochs_s):.1f} s ({fusion.steps_per_epoch} steps each; "
+        f"{times['fusion_step_ms']:.2f} ms per step, "
+        f"{times['fusion_step_ms_after_first_epoch'] or float('nan'):.2f} after the first "
+        f"epoch) + sweeps {times['ent_sweep_s'] + times['rel_sweep_s']:.2f} s + Extractor "
+        f"pretraining {pretrain_s:.1f} s ({times['pretrain_step_ms']:.2f} ms per step) + "
+        f"centroids {centroids_s:.2f} s + GAN {gan_loop_s:.1f} s "
+        f"({times['gan_epoch_ms']:.2f} ms per epoch) + {n_evals} evaluations "
+        f"{sum(times['evaluate_s']):.2f} s")
+    out = dict(card=card, launches=launches, expected=expect, expected_parts=per,
+               steps=steps, steps_per_epoch=fusion.steps_per_epoch, cert=cert,
+               result={k: v for k, v in result.items() if k != "per_relation"},
+               kernel_vs_plain=agree, times=times, stages=stages,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[trained] phase 10 in {out['phase_s']:.1f} s ({card})")
+    gates.close()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1846,11 +2080,14 @@ def main() -> int:
                            card=card)
         kge_info = timed("8_kge", phase_kge, os.path.join(tmp, "kge"), card=card)
         mesh_info = timed("9_mesh", phase_mesh, os.path.join(tmp, "mesh"), card=card)
+        learn_info = timed("10_trained", phase_learnability, os.path.join(tmp, "learn"),
+                           card=card)
 
     def entry(name, replaces, case, dtype="float32"):
         """One kernel's line: its times at ``case`` in ``dtype``, its
         launches on each path of this run (phases 3-6 in float32, phase 7 in
-        bfloat16, phase 8 in either, phase 9 in float32 on each rank)."""
+        bfloat16, phase 8 in either, phase 9 in float32 on each rank, phase
+        10 in float32)."""
         rec = next(r for r in recs if r["case"] == case and r["dtype"] == dtype)
         if dtype == "float32":
             by_path = {"serving": slice_info["launches"][name],
@@ -1859,7 +2096,8 @@ def main() -> int:
                        "cli": cli_info["launches"][name],
                        "kge": kge_info["launches"][f"{name}.float32"],
                        # per rank of each world (its own process's counter)
-                       "mesh": {r: c[name] for r, c in mesh_info["launches_by_rank"].items()}}
+                       "mesh": {r: c[name] for r, c in mesh_info["launches_by_rank"].items()},
+                       "trained": learn_info["launches"][f"{name}.float32"]}
         else:
             key = f"{name}.{dtype}"
             by_path = {"serving": serve16_info["launches"].get(key, 0),
@@ -1867,7 +2105,8 @@ def main() -> int:
                        "zsl_training": gan16_info["launches"].get(key, 0),
                        "cli": cli16_info["launches"].get(key, 0),
                        "kge": kge_info["launches"][key],
-                       "mesh": {r: 0 for r in mesh_info["launches_by_rank"]}}
+                       "mesh": {r: 0 for r in mesh_info["launches_by_rank"]},
+                       "trained": learn_info["launches"][key]}
             name = f"{name}_bf16"
         launches = sum(v if isinstance(v, int) else sum(v.values()) for v in by_path.values())
         return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
@@ -1892,7 +2131,7 @@ def main() -> int:
                        slice=slice_info, train=train_info, zsl=zsl_info, cli=cli_info,
                        bf16_serving=serve16_info, bf16_train=train16_info,
                        bf16_gan=gan16_info, bf16_cli=cli16_info, kge=kge_info,
-                       mesh=mesh_info, phase_s=phase_s,
+                       mesh=mesh_info, trained=learn_info, phase_s=phase_s,
                        kernels=kernels["kernels"]),
                   f, indent=1)
     log(json.dumps(kernels))

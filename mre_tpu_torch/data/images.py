@@ -1,13 +1,18 @@
-"""PNG coding and bicubic resizing in numpy + zlib, without PIL.
+"""PNG coding and bicubic resizing in numpy + zlib (and a C scanline
+unfilter), without PIL.
 
 The JAX package decodes and resizes entity images with PIL
 (mre_tpu/data/multimodal.py:86-136). The port reproduces those steps bit
-for bit with numpy:
+for bit:
 
 * ``decode_png`` — 8-bit greyscale / grey+alpha / RGB / RGBA, non-interlaced,
-  scanline filters 0-4; alpha is blended onto white with PIL's
+  scanline filters 0-4 (undone in C, ``csrc/png_unfilter.cpp``, built by
+  g++ at first use); alpha is blended onto white with PIL's
   ``alpha_composite`` integer arithmetic (AlphaComposite.c), then dropped;
-* ``encode_png`` — RGB, filter 0 on every row;
+* ``encode_png`` — RGB, PIL's encoder byte for byte (ZipEncode.c): per row
+  the filter of least summed |signed byte| among None, Up, Sub and Paeth,
+  ties to the first; zlib at the default level, memory level 9,
+  ``Z_FILTERED``; IDAT chunks of at most max(65536, 4 · width) bytes;
 * ``resize_bicubic`` — PIL's ``Image.resize(..., BICUBIC)`` (Resample.c): a
   = −0.5, support 2 scaled by the reduction factor when downsampling,
   coefficients normalised then rounded to 22-bit fixed point, a horizontal
@@ -16,15 +21,24 @@ for bit with numpy:
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import struct
+import subprocess
 import zlib
+from pathlib import Path
 
 import numpy as np
+
+from mre_tpu_torch.utils.build import build_once
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # PNG colour type → samples per pixel
 _PRECISION_BITS = 22                      # Resample.c, 8 bits per channel
+_PKG = Path(__file__).resolve().parent.parent
+_UNFILTER_SRC = _PKG / "csrc" / "png_unfilter.cpp"
+_UNFILTER_SO = _PKG / "_build" / "png_unfilter.so"
+_unfilter_cdll = None
 
 
 # -- PNG ---------------------------------------------------------------------
@@ -36,34 +50,36 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
+def _build_unfilter(tmp: Path) -> None:
+    subprocess.run(["g++", "-O2", "-std=c++17", "-fPIC", "-shared", str(_UNFILTER_SRC),
+                    "-o", str(tmp)], check=True, capture_output=True, text=True)
+
+
+def _unfilter_lib() -> ctypes.CDLL:
+    """``csrc/png_unfilter.cpp``, built by g++ on first use into ``_build/``
+    (``utils/build.py``; raises ``CalledProcessError`` with g++'s output)."""
+    global _unfilter_cdll
+    if _unfilter_cdll is None:
+        so = build_once(_UNFILTER_SO, _build_unfilter,
+                        lambda so: so.stat().st_mtime < _UNFILTER_SRC.stat().st_mtime)
+        lib = ctypes.CDLL(str(so))
+        lib.png_unfilter.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+        lib.png_unfilter.restype = ctypes.c_int
+        _unfilter_cdll = lib
+    return _unfilter_cdll
+
+
 def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
-    rows = raw.reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(height):
-        ftype = int(rows[y, 0])
-        line = rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 2:                                   # Up
-            cur = (line + prev) & 0xFF
-        elif ftype == 1:                                   # Sub: running sum per channel
-            cur = line.reshape(-1, bpp).cumsum(axis=0).reshape(-1) & 0xFF
-        elif ftype in (3, 4):                              # Average, Paeth
-            cur = line.copy()
-            for x in range(0, stride, bpp):
-                a = cur[x - bpp:x] if x else np.zeros(bpp, np.int32)
-                b = prev[x:x + bpp]
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = prev[x - bpp:x] if x else np.zeros(bpp, np.int32)
-                    pred = _paeth(a, b, c)
-                cur[x:x + bpp] = (cur[x:x + bpp] + pred) & 0xFF
-        else:
-            raise ValueError(f"PNG: unknown filter type {ftype}")
-        out[y] = cur
-        prev = cur
+    """Scanlines [height, 1 + stride] (filter byte first) → unfiltered
+    [height, stride] uint8, in C (``csrc/png_unfilter.cpp``)."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError(f"PNG: {raw.size} bytes of image data, expected "
+                         f"{height * (stride + 1)}")
+    out = np.empty((height, stride), np.uint8)
+    bad = _unfilter_lib().png_unfilter(raw.ctypes.data, height, stride, bpp, out.ctypes.data)
+    if bad:
+        raise ValueError(f"PNG: unknown filter type {raw[(bad - 1) * (stride + 1)]}")
     return out
 
 
@@ -117,16 +133,36 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
 
 
+def _filter_rows(img: np.ndarray) -> np.ndarray:
+    """Scanlines [H, 1 + 3W] with their filter byte, each row filtered as
+    PIL's ZipEncode.c chooses: None (0), Up (2), Sub (1), Paeth (4) tried in
+    that order, the least sum of |signed byte| kept, a tie to the earlier."""
+    h, w, _ = img.shape
+    cur = img.reshape(h, w * 3).astype(np.int32)
+    up = np.concatenate([np.zeros((1, w * 3), np.int32), cur[:-1]])
+    left = np.concatenate([np.zeros((h, 3), np.int32), cur[:, :-3]], axis=1)
+    up_left = np.concatenate([np.zeros((h, 3), np.int32), up[:, :-3]], axis=1)
+    types = np.array([0, 2, 1, 4], np.uint8)
+    cands = np.stack([cur, cur - up, cur - left, cur - _paeth(left, up, up_left)]) & 0xFF
+    cost = np.where(cands < 128, cands, 256 - cands).sum(-1)             # [4, H]
+    pick = np.argmin(cost, axis=0)                                        # first minimum
+    rows = cands[pick, np.arange(h)].astype(np.uint8)
+    return np.concatenate([types[pick][:, None], rows], axis=1)
+
+
 def encode_png(img: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] → PNG bytes (RGB, 8 bits, filter 0)."""
+    """uint8 [H, W, 3] → PNG bytes (RGB, 8 bits), the bytes PIL's
+    ``Image.fromarray(img).save(buf, format="PNG")`` writes."""
     img = np.ascontiguousarray(img, np.uint8)
     h, w, c = img.shape
     if c != 3:
         raise ValueError("encode_png takes [H, W, 3] RGB")
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    z = zlib.compressobj(zlib.Z_DEFAULT_COMPRESSION, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    data = z.compress(_filter_rows(img).tobytes()) + z.flush()
+    block = max(65536, 4 * w)                     # ImageFile._save's buffer
+    idat = b"".join(_chunk(b"IDAT", data[i:i + block]) for i in range(0, len(data), block))
     return (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-            + _chunk(b"IEND", b""))
+            + idat + _chunk(b"IEND", b""))
 
 
 # -- bicubic resize (PIL Resample.c) ------------------------------------------

@@ -284,3 +284,24 @@ class MultimodalStore:
             batch.pop("text", None)
             batch.pop("text_padding_mask", None)
         return batch
+
+    def triple_batch(self, h_ids, r_ids, t_ids, train: bool = True) -> dict:
+        """Per-triple head and tail batch of the ExpModel path
+        (mre_tpu/data/multimodal.py:339-357; reference
+        MultiModalKnowledgeGraphDataset.get_batch, module/data.py:516-549):
+        the heads' images are drawn before the tails'."""
+        h_ids = np.asarray(h_ids, np.int32)
+        t_ids = np.asarray(t_ids, np.int32)
+        r_ids = np.asarray(r_ids, np.int32)
+        batch = {
+            "text_head": self.text_ids[h_ids],
+            "text_padding_mask_head": self.text_mask[h_ids],
+            "text_tail": self.text_ids[t_ids],
+            "text_padding_mask_tail": self.text_mask[t_ids],
+            "rel_des": self.rel_ids[r_ids],
+            "rel_des_padding_mask": self.rel_mask[r_ids],
+        }
+        if not self.config.text_only:
+            batch["image_head"] = self.entity_images(h_ids, train)
+            batch["image_tail"] = self.entity_images(t_ids, train)
+        return batch

@@ -15,7 +15,11 @@ the relation's unit-normalized generated vectors.
 
 Ranks are pessimistic, 1 + #greater + #tied; in the shared-list path a
 duplicate candidate counts once per occurrence (zero_shot.py:28-47,
-207-223, 280-286). An empty candidate file gives zeros with n = 0.
+207-223, 280-286). A candidate whose entity id is the true tail's is a tie
+by id: it counts whatever its float32 score says, on every path, since the
+same entity can be scored through two different sums (the shared row and
+the true tail's own embedding, or two rows of one batched product) that
+differ in the last bit. An empty candidate file gives zeros with n = 0.
 """
 
 from __future__ import annotations
@@ -70,11 +74,16 @@ def _overall(ranks: np.ndarray, per_relation: dict, return_ranks: bool,
     return overall
 
 
-def _ranks_vs_first(scores, mask):
-    """1 + #(valid candidates scoring >= column 0, the true tail)."""
+def _ranks_vs_first(scores, mask, ids=None):
+    """1 + #(valid candidates scoring >= column 0, the true tail); with
+    ``ids`` [Q, C] (column 0 = the true tail's), every valid candidate of
+    the true tail's id counts as a tie."""
     valid = mask.clone()
     valid[:, 0] = False
-    return ((scores >= scores[:, :1]) & valid).sum(1) + 1
+    hit = scores >= scores[:, :1]
+    if ids is not None:
+        hit = hit | (ids == ids[:, :1])
+    return (hit & valid).sum(1) + 1
 
 
 @torch.no_grad()
@@ -98,7 +107,7 @@ def _rank_stream(embed_query_pairs: Callable, pairs, left, right, mask, vbar) ->
         emb = embed_query_pairs(pairs[c].reshape(-1, 2), left[c].reshape(-1),
                                 right[c].reshape(-1)).float().reshape(chunk, c_max, -1)
         scores = torch.einsum("qcd,qd->qc", _unit(emb), vbar[c])
-        ranks.append(_ranks_vs_first(scores, mask[c]))
+        ranks.append(_ranks_vs_first(scores, mask[c], right[c]))
     return torch.cat(ranks).cpu().numpy()
 
 
@@ -111,7 +120,7 @@ def _rank_stream_block(embed_query_block: Callable, heads, right, mask, vbar) ->
     for c in range(heads.shape[0]):
         emb = embed_query_block(heads[c], right[c]).float()
         scores = torch.einsum("qcd,qd->qc", _unit(emb), vbar[c])
-        ranks.append(_ranks_vs_first(scores, mask[c]))
+        ranks.append(_ranks_vs_first(scores, mask[c], right[c]))
     return torch.cat(ranks).cpu().numpy()
 
 
@@ -120,7 +129,8 @@ def _rank_stream_rel_shared(embed_rel_block: Callable, embed_true: Callable,
                             heads, trues, shared, mask, vbar, mesh=None) -> np.ndarray:
     """heads/trues [nc, chunk]; shared [nc, C]; mask [nc, chunk, C]
     per-occurrence candidate counts; vbar [nc, chunk, D]. Returns ranks
-    [nc·chunk] (host). With ``mesh`` (the chunk count a multiple of its
+    [nc·chunk] (host). A shared-row position holding the true tail's own
+    id counts its multiplicity whatever the two float32 scores say. With ``mesh`` (the chunk count a multiple of its
     ``data`` axis) data rank d ranks chunks d, d + n_data, … (the JAX
     layout, zero_shot.py:157-167) and the integer ranks are summed over
     the data group into chunk order: no float crosses ranks."""
@@ -133,8 +143,8 @@ def _rank_stream_rel_shared(embed_rel_block: Callable, embed_true: Callable,
         v = vbar[c]
         scores = torch.einsum("qcd,qd->qc", emb, v)
         true_s = torch.einsum("qd,qd->q", te, v)
-        ranks[c] = torch.where(scores >= true_s[:, None], mask[c],
-                               torch.zeros_like(mask[c])).sum(1) + 1
+        hit = (scores >= true_s[:, None]) | (shared[c][None, :] == trues[c][:, None])
+        ranks[c] = torch.where(hit, mask[c], torch.zeros_like(mask[c])).sum(1) + 1
     if mesh is not None:
         from mre_tpu_torch.parallel import mesh as pmesh
 

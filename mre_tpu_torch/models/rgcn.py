@@ -6,9 +6,9 @@ incoming edges per (destination, relation), root weight and bias
 reference uses it, module/model.py:552-570). Padded edges (``edge_mask``
 False) are parked in an extra segment and contribute nothing.
 
-The segment sums are ``index_add_``. On CUDA it adds with atomics, so the
-order of the additions, and the last bits of each sum, change from run to
-run; callers compare with a tolerance, not bitwise.
+The segment sums are ``ops/segment.py::segment_sum``: on CUDA a sorted
+accumulation rather than atomics, so a seed gives the same bits on every
+run.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from mre_tpu_torch.models.initializers import xavier_uniform
+from mre_tpu_torch.ops.segment import segment_sum
 
 
 class RGCNConv(nn.Module):
@@ -51,11 +52,9 @@ class RGCNConv(nn.Module):
         seg = torch.where(edge_mask, dst * R + edge_type,
                           torch.full_like(dst, N * R))
         w = edge_mask.to(x.dtype)
-        counts = torch.zeros(N * R + 1, dtype=x.dtype, device=x.device
-                             ).index_add_(0, seg, w)
+        counts = segment_sum(w, seg, N * R + 1)
         norm = torch.where(edge_mask, 1.0 / torch.clamp(counts[seg], min=1.0),
                            torch.zeros_like(w))
         park = torch.where(edge_mask, dst, torch.full_like(dst, N))
-        agg = torch.zeros(N + 1, msg.shape[1], dtype=x.dtype, device=x.device
-                          ).index_add_(0, park, msg * norm[:, None])[:N]
+        agg = segment_sum(msg * norm[:, None], park, N + 1)[:N]
         return agg + x @ self.root + self.bias

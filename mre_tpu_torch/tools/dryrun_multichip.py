@@ -279,7 +279,7 @@ def _check_zsl(trainer, data, path, spec, mesh, device) -> dict:
         zsl.symbol_table = torch.as_tensor(state["symbols"], device=device)
         zsl.centroid_matrix = torch.as_tensor(state["centroid"], device=device)
     # the state the checks start from, for another world to start from it too
-    # (on a card the RGCN's atomic sums make each sweep's last bits differ)
+    # (a world's sweep may differ from another's in the last bits)
     start = dict(ex=module_to_flax(zsl.extractor)[0], d=module_to_flax(zsl.discriminator),
                  symbols=_host(zsl.symbol_table), centroid=_host(zsl.centroid_matrix),
                  test_noises=_host(zsl.test_noises))

@@ -56,6 +56,7 @@ from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.extractor import Discriminator, Extractor
 from mre_tpu_torch.models.initializers import init_weights
 from mre_tpu_torch.models.transformer import DropoutMasks, compute_dtype as torch_dtype
+from mre_tpu_torch.ops.segment import segment_sum
 from mre_tpu_torch.parallel import mesh as pmesh
 from mre_tpu_torch.zsl.episodes import EpisodeSampler, SymbolTable, build_connections
 
@@ -456,9 +457,8 @@ class ZSLModule:
         # visual pivot: per-label mean of the generated samples vs the centroid
         L = self.label_num
         seg = torch.where(self._put(mask, torch.bool), labels, L)
-        sums = torch.zeros(L + 1, sample.shape[1], device=self.device).index_add(
-            0, seg, sample * w[:, None])
-        cnts = torch.zeros(L + 1, device=self.device).index_add(0, seg, w)
+        sums = segment_sum(sample * w[:, None], seg, L + 1)
+        cnts = segment_sum(w, seg, L + 1)
         if rows is not None:
             sums = pmesh.all_reduce_sum(sums, rows.group)
             cnts = pmesh.all_reduce_sum(cnts, rows.group)

@@ -73,8 +73,9 @@ def _pil_decode(data):
 
 @pytest.mark.parametrize("mode,ch", [("RGB", 3), ("RGBA", 4), ("L", 1), ("LA", 2)])
 def test_decode_png_equals_pil(mode, ch):
-    """PIL picks filters 0-4 adaptively per row, so every filter is hit;
-    RGBA/LA also exercise the alpha blend onto white."""
+    """PIL picks filters 0, 1, 2 and 4 adaptively per row (Average, 3, is
+    in test_decode_png_undoes_every_filter_type); RGBA/LA also exercise the
+    alpha blend onto white."""
     rng = np.random.default_rng(ch)
     for h, w in [(1, 1), (7, 13), (31, 5), (24, 24)]:
         arr = rng.integers(0, 256, (h, w, ch), dtype=np.uint8)
@@ -83,6 +84,39 @@ def test_decode_png_equals_pil(mode, ch):
         buf = io.BytesIO()
         Image.fromarray(arr[..., 0] if ch == 1 else arr, mode).save(buf, format="PNG")
         np.testing.assert_array_equal(decode_png(buf.getvalue()), _pil_decode(buf.getvalue()))
+
+
+def _png_with_filters(arr, types):
+    """RGB PNG bytes whose row y is filtered with ``types[y]`` (0-4 per the
+    PNG specification; filtering reads the unfiltered neighbours), for the
+    filter PIL never writes (Average) and for a bad filter byte."""
+    import struct
+    import zlib
+
+    from mre_tpu_torch.data import images
+
+    h, w, _ = arr.shape
+    x = arr.reshape(h, w * 3).astype(np.int64)
+    rows = []
+    for y in range(h):
+        up = x[y - 1] if y else np.zeros(w * 3, np.int64)
+        left = np.concatenate([np.zeros(3, np.int64), x[y, :-3]])
+        up_left = np.concatenate([np.zeros(3, np.int64), up[:-3]])
+        pred = {0: 0, 1: left, 2: up, 3: (left + up) >> 1,
+                4: images._paeth(left, up, up_left)}.get(types[y], 0)
+        rows.append(np.concatenate([[types[y]], (x[y] - pred) & 0xFF]).astype(np.uint8))
+    return (images._SIG + images._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + images._chunk(b"IDAT", zlib.compress(np.concatenate(rows).tobytes()))
+            + images._chunk(b"IEND", b""))
+
+
+def test_decode_png_undoes_every_filter_type():
+    arr = np.random.default_rng(5).integers(0, 256, (15, 11, 3), dtype=np.uint8)
+    data = _png_with_filters(arr, [y % 5 for y in range(15)])
+    np.testing.assert_array_equal(decode_png(data), arr)
+    np.testing.assert_array_equal(_pil_decode(data), arr)
+    with pytest.raises(ValueError, match="unknown filter type 7"):
+        decode_png(_png_with_filters(arr, [0] * 5 + [7] + [0] * 9))
 
 
 def test_encode_png_round_trips_through_pil():

@@ -293,39 +293,16 @@ def test_launches_per_step_do_not_depend_on_the_world(runs):
             assert counts == {"attention_fwd": 0, "attention_fwd_packed": 0}
 
 
-def _synthetic_stream():
-    """tests/test_sharding.py's rel_shared stream: 3 relations of 5-7
-    queries, chunks of 4 (5 chunks: padded to 8 on 4 ranks)."""
-    rng = np.random.RandomState(0)
-    n_ent, D = 40, 8
-    T = rng.randn(n_ent, D).astype(np.float32)
-    names = [f"e{i}" for i in range(n_ent)]
-    e2id = {n: i for i, n in enumerate(names)}
-    test_candidates = {}
-    for r in range(3):
-        rel = f"rel{r}"
-        pool = rng.choice(n_ent, size=12, replace=False)
-        queries = {}
-        for k in range(5 + r):
-            head = names[(3 * k + r) % n_ent]
-            true = names[(5 * k + 2 * r + 1) % n_ent]
-            negs = [names[i] for i in pool[rng.rand(len(pool)) < 0.8]]
-            queries[f"{head}\t{rel}\t{true}"] = [true] + negs
-        test_candidates[rel] = queries
-    rel_vecs = {f"rel{r}": np.random.RandomState(100 + r).randn(4, D).astype(np.float32)
-                for r in range(3)}
-    return dict(T=T, e2id=e2id, test_candidates=test_candidates, rel_vecs=rel_vecs)
-
-
 def test_rel_shared_synthetic_stream_with_padding_equals_jax_mesh():
     """The synthetic stream (5 chunks, padded to 8 on 4 ranks) ranks as the
-    port's own 1-rank run does, exactly, and as JAX's 8-device mesh does,
-    except that a candidate list holding its own true tail among the
-    negatives is an exact mathematical tie: the port scores that duplicate
-    through the shared-row path and the true tail through the factored
-    one, whose float32 sums may differ in the last bit, so the pessimistic
-    count may include or leave out each such duplicate (ROADMAP.md §3)."""
-    spec = _synthetic_stream()
+    port's own 1-rank run does, exactly, and equals the float64 pessimistic
+    rank on every query (query 6, whose list holds its own true tail among
+    the negatives: 10). JAX's 8-device mesh agrees except that its float32
+    scores may drop such an exact tie: the duplicate is scored through the
+    shared row and the true tail through its own embedding, whose sums may
+    differ in the last bit, while the port counts the true tail's id as a
+    tie by id (ROADMAP.md §3)."""
+    spec = tasks.synthetic_stream()
     Tj = jnp.asarray(spec["T"])
     kw = dict(query_chunk=4, verbose=False, return_ranks=True)
     ref = j_rel_shared(spec["test_candidates"], spec["e2id"],
@@ -341,6 +318,9 @@ def test_rel_shared_synthetic_stream_with_padding_equals_jax_mesh():
     gap = np.abs(single["ranks"] - np.asarray(ref["ranks"]))
     assert np.all(gap <= dups), (single["ranks"], ref["ranks"], dups)
     np.testing.assert_array_equal(single["ranks"][dups == 0], np.asarray(ref["ranks"])[dups == 0])
+    exact = tasks.exact_ranks(spec)
+    assert exact[6] == 10 and dups[6] == 1
+    np.testing.assert_array_equal(single["ranks"], exact)
     for out in outs:
         np.testing.assert_array_equal(out["ranks"], single["ranks"])
         for m in ("n", "hits10", "hits5", "hits1", "mrr"):

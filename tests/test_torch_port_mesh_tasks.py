@@ -3,6 +3,7 @@
 ``task(device, work_dir, *args)``). The module imports no JAX, so a spawned
 rank starts quickly."""
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -78,6 +79,54 @@ def collectives(device, work_dir):
     return out
 
 
+def synthetic_stream(extra_true: int = 0):
+    """tests/test_sharding.py's rel_shared stream: 3 relations of 5-7
+    queries, chunks of 4 (5 chunks: padded to 8 on 4 ranks). Query 6's list
+    holds its own true tail among the negatives; ``extra_true`` appends the
+    true tail that many more times to every list."""
+    rng = np.random.RandomState(0)
+    n_ent, D = 40, 8
+    T = rng.randn(n_ent, D).astype(np.float32)
+    names = [f"e{i}" for i in range(n_ent)]
+    e2id = {n: i for i, n in enumerate(names)}
+    test_candidates = {}
+    for r in range(3):
+        rel = f"rel{r}"
+        pool = rng.choice(n_ent, size=12, replace=False)
+        queries = {}
+        for k in range(5 + r):
+            head = names[(3 * k + r) % n_ent]
+            true = names[(5 * k + 2 * r + 1) % n_ent]
+            negs = [names[i] for i in pool[rng.rand(len(pool)) < 0.8]]
+            queries[f"{head}\t{rel}\t{true}"] = [true] + negs + [true] * extra_true
+        test_candidates[rel] = queries
+    rel_vecs = {f"rel{r}": np.random.RandomState(100 + r).randn(4, D).astype(np.float32)
+                for r in range(3)}
+    return dict(T=T, e2id=e2id, test_candidates=test_candidates, rel_vecs=rel_vecs)
+
+
+def exact_ranks(spec) -> np.ndarray:
+    """The pessimistic rank of each query of a synthetic stream in float64:
+    1 + every negative (each occurrence) whose cosine with the relation's
+    mean unit vector is at least the true tail's, + every occurrence of the
+    true tail among the negatives (its cosine is the true tail's exactly;
+    it is counted by id, since a vectorised float64 product may still round
+    two equal rows apart)."""
+    T = spec["T"].astype(np.float64)
+    e2id = spec["e2id"]
+    out = []
+    for rel, queries in spec["test_candidates"].items():
+        rv = spec["rel_vecs"][rel].astype(np.float64)
+        vbar = (rv / np.linalg.norm(rv, axis=-1, keepdims=True)).mean(0)
+        for key, cands in queries.items():
+            ids = np.asarray([e2id[c] for c in cands])
+            emb = T[e2id[key.split("\t")[0]]] + 2.0 * T[ids]
+            s = emb / np.linalg.norm(emb, axis=-1, keepdims=True) @ vbar
+            dup = ids[1:] == ids[0]
+            out.append(1 + int(((s[1:] >= s[0]) & ~dup).sum()) + int(dup.sum()))
+    return np.asarray(out)
+
+
 def synthetic_rel_shared(device, work_dir, spec):
     """``tests/test_sharding.py::test_rel_shared_eval_sharded_matches_single``'s
     synthetic query stream through the port's rel_shared ranking, data
@@ -138,3 +187,8 @@ def tensor_parallel_ffn(device, work_dir):
             swapped = isinstance(tp, TensorParallelMLP)
     return dict(ref=ref.numpy().copy(), out=out.numpy().copy(), shares=shares,
                 swapped=swapped, restored=holder[0] is mlp)
+
+
+def synthetic_rel_shared_specs(device, work_dir, specs):
+    """``synthetic_rel_shared`` on each stream of ``specs`` in turn."""
+    return [synthetic_rel_shared(device, work_dir, spec) for spec in specs]

@@ -176,7 +176,7 @@ for m in pkgutil.walk_packages(mre_tpu_torch.__path__, "mre_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("mre_tpu_torch.parallel.mesh", "mre_tpu_torch.tools.dryrun_multichip",
-             "mre_tpu_torch.utils.build"):
+             "mre_tpu_torch.utils.build", "mre_tpu_torch.tools.zsl_learnability"):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "PIL")

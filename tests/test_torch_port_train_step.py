@@ -56,23 +56,22 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def one_step(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("zsl_train"))
-    write_zsl_dataset(path, n_ent=30, n_rel=6, n_unseen=2, triples_per_rel=12,
-                      image_size=8, seed=5)
+def first_step_pair(path, pipe, cfg):
+    """The JAX and the port trainer on the dataset at ``path`` (the port
+    with the JAX trainer's parameters and spectral vectors), the first
+    sampled subgraph, its JAX device batch, and the JAX step's draws in the
+    port's form."""
     data = load_zsl_dataset(path, mode="train")
     triples = np.asarray(data["triples"]).T
     n_ent, n_rel = len(data["e2id"]), len(data["r2id"])
     jf = JFusion(JTable.build(triples, n_ent, n_rel),
-                 JStore(data["mm_info"], data["rel_des"], JPipe(**PIPE)),
-                 JFusionConfig(**CFG))
+                 JStore(data["mm_info"], data["rel_des"], JPipe(**pipe)),
+                 JFusionConfig(**cfg))
     tf = FusionTrainer(TripleTable.build(triples, n_ent, n_rel),
                        MultimodalStore(data["mm_info"], data["rel_des"],
-                                       MultimodalPipelineConfig(**PIPE)),
-                       FusionConfig(**CFG), device="cpu")
-    params0, spectral0 = _np(jf.params), _np(jf.spectral)
-    load_flax(tf.model, params0, spectral0)
+                                       MultimodalPipelineConfig(**pipe)),
+                       FusionConfig(**cfg), device="cpu")
+    load_flax(tf.model, _np(jf.params), _np(jf.spectral))
 
     graph_batch = next(iter(jf.sampler))
     db = jf.prepare_device_batch(graph_batch)
@@ -98,7 +97,15 @@ def one_step(tmp_path_factory):
         "neg_t": torch.from_numpy(np.array(neg_t)),
         "neg_failed": torch.from_numpy(np.array(failed)),
     }
+    return jf, tf, graph_batch, db, draws
 
+
+@pytest.fixture(scope="module")
+def one_step(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("zsl_train"))
+    write_zsl_dataset(path, n_ent=30, n_rel=6, n_unseen=2, triples_per_rel=12,
+                      image_size=8, seed=5)
+    jf, tf, graph_batch, db, draws = first_step_pair(path, PIPE, CFG)
     params, spectral, opt_state, _, j_info = jf._step_fn(
         jf.params, jf.spectral, jf.opt_state, jf._rng, db)
     tb = tf.prepare_device_batch(graph_batch)
