@@ -6,8 +6,12 @@ Phases (each raises, and the script exits non-zero, on any failure):
 
 1. card and build — the card's name and power limit (nvidia-smi); every
    kernel of the path is compiled from csrc/ with nvcc (all sources at once),
-   and each instantiation's ptxas registers and spills and its count of
-   tensor-core HMMA instructions (cuobjdump) are printed;
+   and each instantiation's ptxas registers and spills and its SASS counts
+   (cuobjdump) of HMMA (``mma.sync``), HGMMA (``wgmma``) and UTMALDG (TMA
+   tile loads) are printed. It fails on a spill at head_dim <= 64, on an
+   instantiation with no tensor-core instruction of either kind, and on an
+   instantiation of the Hopper design (``attention.WGMMA_INSTANTIATIONS``)
+   without HGMMA or UTMALDG;
 2. kernels vs plain — each kernel's wrapper on the card at the shapes of the
    serving and training paths, held against its plain PyTorch version
    (float32 atol 1e-4, bfloat16 atol 2e-2), with CUDA-event times of the
@@ -300,6 +304,9 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # float32 on the tensor cores, in three TF32 passes; the bound counts the
 # work once), bfloat16 at the bf16 tensor-core peak, bytes at HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
+# The kernel's own floor counts its passes: float32 runs both products in
+# three TF32 passes, bfloat16 runs Q·K^T once and P·V twice (P's hi and lo).
+PASSES = {torch.float32: 3.0, torch.bfloat16: 1.5}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -433,11 +440,13 @@ def attention_case(name, B, H, N, hd, dtype, mask_kind, gen, timed=False, n_text
         rec["bound_ms"] = max(t_ops, t_bytes)
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["passes_floor_ms"] = max(PASSES[dtype] * t_ops, t_bytes)
     log(f"[kernel] {name:<22} {rec['dtype']:<8} B{B} H{H} N{N} hd{hd} mask={mask_kind:<8} "
         f"max|d|={err:.3e} (tol {TOL[dtype]:g})"
         + (f"  kernel {rec['ms']:.3f} ms  plain {rec['plain_ms']:.3f} ms  "
            f"sdpa {rec['library_ms']:.3f} ms  bound {rec['bound_ms']:.3f} ms "
-           f"({rec['bound_by']}, share {rec['share_of_bound']:.3f})" if timed else ""))
+           f"({rec['bound_by']}, share {rec['share_of_bound']:.3f}; with the kernel's passes "
+           f"{rec['passes_floor_ms']:.3f} ms)" if timed else ""))
     if not ok:
         raise AssertionError(f"attention_fwd disagrees with its plain version: {rec}")
     return rec
@@ -3142,16 +3151,25 @@ def main() -> int:
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     build = attention.build_report(lib)
     for (hd, dtype), r in sorted(build.items()):
-        log(f"[build] attention_fwd_kernel<{hd}, {dtype}>: {r['registers']} registers, "
+        design = "wgmma + TMA" if (hd, dtype) in attention.WGMMA_INSTANTIATIONS else "mma.sync"
+        log(f"[build] attention_fwd_kernel<{hd}, {dtype}> ({design}): {r['registers']} registers, "
             f"spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
-            f"HMMA {r['hmma'] if r['hmma'] is not None else 'not counted (no cuobjdump)'}")
+            + ", ".join(f"{op} {r[op.lower()]}" for op in attention.SASS_OPS))
+    uncounted = [key for key, r in build.items()
+                 if any(r[op.lower()] is None for op in attention.SASS_OPS)]
+    if uncounted:
+        raise AssertionError(f"SASS not counted (no cuobjdump) for {uncounted}")
     if len(build) != 2 * len(attention.HEAD_DIMS):
         raise AssertionError(f"ptxas reported {sorted(build)}, expected every head_dim × dtype")
     spills = [key for key, r in build.items() if key[0] <= 64 and r["spill_stores"]]
     if spills:
         raise AssertionError(f"register spills at head_dim <= 64: {spills}")
-    if any(r["hmma"] == 0 for r in build.values()):
+    if any(r["hmma"] == 0 and r["hgmma"] == 0 for r in build.values()):
         raise AssertionError(f"an instantiation has no tensor-core instruction: {build}")
+    hopper = [key for key in attention.WGMMA_INSTANTIATIONS
+              if build[key]["hgmma"] == 0 or build[key]["utmaldg"] == 0]
+    if hopper:
+        raise AssertionError(f"wgmma + TMA instantiations without HGMMA or UTMALDG: {hopper}")
 
     phase_s = {"build": time.perf_counter() - t_start}
 

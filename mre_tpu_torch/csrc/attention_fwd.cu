@@ -17,73 +17,89 @@
 //
 // with the logit scaled after the dot product, the exact where-select value
 // -1e7 at PAD keys (so a fully masked row is a uniform average, as in the
-// reference), softmax and sums in float32, and the output in the input type
-// (float32 or bfloat16).
+// reference), keys at N and beyond excluded with -inf, softmax and sums in
+// float32, and the output in the input type (float32 or bfloat16).
 //
 // What bounds it on an H100 (SXM, 700 W). At the entity-sweep shape of
 // M3AE-small (B 512, H 6, N 321, hd 64) the work is 4·B·H·N²·hd = 81 GFLOP
 // against 1.01 GB of q, k, v and out in float32: 0.30 ms of memory at
-// 3.35 TB/s, 0.16 ms of arithmetic at the TF32 tensor-core peak (495 TFLOP/s),
-// so the function is bound by bytes; in bfloat16 too (0.15 ms of memory,
-// 0.08 ms at 989 TFLOP/s). Every main-path shape is bound by bytes in the
-// same way. The three TF32 passes below triple the float32 tensor-core work
-// (0.49 ms at peak), so this kernel's own floor lies above the bytes. The
-// design reads q, k and v once per block from device memory, keeps the
-// logits in registers, overlaps the K/V copies with the products, and moves
-// the products to the tensor cores:
+// 3.35 TB/s, 0.16 ms of arithmetic at the TF32 tensor-core peak. bfloat16 is
+// bound by bytes (0.15 ms against 0.08 ms at 989 TFLOP/s, 0.12 ms with the
+// second P·V pass below). float32 runs three TF32 passes (below) and so is
+// bound by operations: 3 × 81 GFLOP / 495 TFLOP/s = 0.49 ms, about 0.64 ms
+// with the float32 tiles below over N 321 (384 · 352 / 321² of the products).
 //
-// * Work split. One block per (b·h, BLOCK_Q query rows); each warp owns 16
-//   query rows, the m of `mma.sync` m16n8k*. N = 321 does not divide: a warp
-//   whose 16 rows all lie beyond N computes nothing but still helps load.
-// * Products on the tensor cores with `mma.sync`. bfloat16: m16n8k16, bf16 in,
-//   f32 accumulate, V through `ldmatrix.trans`. float32: m16n8k8 TF32 in three
-//   passes (3xTF32): each operand x splits into hi = tf32(x) and
-//   lo = tf32(x - hi) (split_tf32), and hi·hi + hi·lo + lo·hi is summed in f32,
-//   about 21 bits of each operand. One TF32 pass keeps 10 and leaves errors of
-//   1e-4..1e-3 in the output at these shapes, outside the float32 tolerance
-//   (tests/test_torch_port_attention.py emulates both). P is split the same
-//   way in bfloat16 (hi + lo, two passes), so P·V keeps float32 precision
-//   there too, as the Pallas kernel's float32 dot does.
-// * TF32 P·V without a relayout. The C fragment of Q·K^T holds keys 2t, 2t+1
-//   of each 8-key tile in lane t of a quad, where the A fragment of m16n8k8
-//   wants keys t and t+4. A sum over keys does not care about their order, so
-//   the kernel relabels them: A column t is key 2t, column t+4 key 2t+1, and
-//   the V fragment reads rows 2t and 2t+1 to match. P never leaves registers.
-// * K/V tiles of BLOCK_K keys through shared memory with `cp.async` (16
-//   bytes, zero-filled past N), two stages: tile i+1 loads while tile i is
-//   computed. Rows are padded (float32: hd + 4 floats, bfloat16: hd + 8
-//   halves) so that the fragment loads of K (as B in Q·K^T) and of V (as B
-//   in P·V, and the rows ldmatrix reads) hit 32 distinct banks.
-// * Online softmax in registers: each lane holds two rows of the 16; the row
-//   max reduces across the quad with shuffles, the row sum at the end.
-//   exp is __expf (ex2.approx): its relative error, a few 1e-7 for the
-//   logit gaps here, is far inside the float32 tolerance. Keys beyond N (the
-//   ragged last tile) are excluded with -inf, never -1e7.
+// Two bodies:
 //
-// The tile, as measured on an H100 80GB HBM3 at 700 W (PERF.md):
-// 32-key tiles and 4 warps (64 query rows) per block. The float32 loop body
-// is fully unrolled (the fragments live in registers), so its size grows with
-// the key tile: 64-key tiles (entity shape, float32: 2.85 ms against 1.99,
-// tools/tile_sweep.py), or a second copy of the body that skips the empty
-// column tiles of the ragged last tile, each made the kernel slower, though
-// they compute fewer keys. 8 warps per block and 16-key tiles were slower
-// too. So were a split of K and V into (hi, lo) once per block in shared
-// memory, in place of each warp splitting its fragments (an extra pass and
-// barrier per tile, twice the shared memory), and cvt.rna for the split.
-// Loading the mask with cp.async, one barrier per tile and 3-4 stages moved
-// nothing. As far as these trials tell, what is left is the tensor-core work
-// itself (three TF32 passes through the `mma.sync` path) with the splits and
-// the softmax around it: the float32 kernel reaches about a seventh of its
-// bound, bfloat16 about a fifth.
+// * head_dim 32 and 64, both types: the Hopper design (`namespace wgmma`).
+//   Warp-specialised blocks: WG consumer warpgroups of 64 query rows each and
+//   one producer warp (with 2 consumer warpgroups, a whole producer
+//   warpgroup that hands its registers to them with `setmaxnreg`; one of its
+//   warps works). The producer keeps a ring of STAGES K/V tiles of BK
+//   keys in flight with TMA (`cp.async.bulk.tensor`, 3-D tensor maps
+//   [B·H, N, hd] with hd innermost, so a tile past N is zero-filled inside
+//   its own (b, h)), completion on `mbarrier`s, and writes each key's code
+//   beside its tile: the (mul, add) that turns q·k into the logit in log2
+//   units with one FMA (scale·log2 e at a real key, the where-select -1e7 at
+//   PAD, -inf past N), so the softmax runs on ex2. The consumers run
+//   warpgroup MMA (`wgmma.mma_async`) with A from registers: S = Q·K^T
+//   (m64nBKk16 / m64nBKk8), the online softmax on the accumulators, O += P·V
+//   with P taken from S's accumulators as the next A fragment (each warp owns
+//   16 rows, the layout of `mma.sync`, so the quad-shuffle max and sum carry
+//   over). The loop is pipelined inside each warpgroup, as in
+//   FlashAttention-3: tile i's S is issued together with tile i-1's P·V, and
+//   tile i's exponentials run while that P·V is on the tensor cores.
+//   - bfloat16: K and V are read by `wgmma` where TMA lands them (128-byte
+//     swizzle at hd 64, 64-byte at hd 32): K as the K-major B of Q·K^T, V as
+//     the MN-major B of P·V (the transpose bit). P is split into bf16
+//     hi + lo and multiplied in two passes, so P·V keeps float32 precision.
+//   - float32: three TF32 passes (3xTF32): each operand x splits into
+//     hi = tf32(x) and lo = tf32(x - hi) (split_tf32) and hi·hi + hi·lo +
+//     lo·hi is summed in f32, about 21 bits of each operand; one TF32 pass
+//     keeps 10 and leaves errors of 1e-4..1e-3 at these shapes, outside the
+//     float32 tolerance (tests/test_torch_port_attention.py emulates both).
+//     TF32 `wgmma` takes K-major operands only, and B from shared memory, so
+//     the consumers split every raw tile in shared memory into hi and lo
+//     tiles in the 128-byte-swizzled layout `wgmma` reads: K as it is, V
+//     transposed to [hd][key]. The transpose writes each 8-key group in the
+//     order of P's register fragment (A column t = key 2t, column t + 4 =
+//     key 2t + 1): a sum over keys does not care about their order, so P
+//     never leaves registers. The split costs a pass over each tile per
+//     block; the 2 consumer warpgroups share it (named barriers), and the
+//     split tiles are double-buffered.
+// * head_dim 80 (`huge`, off the main path), both types: the earlier body
+//   (`namespace mma_sync`), `mma.sync` m16n8k8 / m16n8k16 fed by `cp.async`.
+//   Its 160-byte bf16 rows (320-byte float32 rows) fit no swizzle mode
+//   whole, so TMA would land them as two boxes of unequal swizzle; the body
+//   stays until a PR needs hd 80.
 //
-// Why `mma.sync` and not `wgmma`: the per-block work is small (hd <= 80,
-// eleven 32-key tiles at N 321), and TF32 `wgmma` takes only K-major
-// operands, so V would have to be transposed in shared memory. `wgmma` and
-// TMA are the next step (PERF.md).
+// The tile (ATTN_BLOCK_K keys per tile, ATTN_WG consumer warpgroups,
+// ATTN_STAGES ring stages) is chosen by `python -m
+// mre_tpu_torch.tools.tile_sweep`, which builds this file with those -D
+// defines (they override both types). Chosen, on an H100 80GB HBM3 at
+// 700 W (PERF.md §6):
+// * bfloat16: 32-key tiles, 1 consumer warpgroup, 4 stages (entity shape
+//   0.543 ms against 0.566-1.12 for the other tiles; 2 warpgroups were slower
+//   at every shape, with or without `setmaxnreg`, and 2 stages starve the
+//   pipelined loop, which holds a tile until its P·V has landed);
+// * float32: 32-key tiles, 2 consumer warpgroups (128 query rows per block,
+//   3 query tiles per (b, h) at N 321; the split is shared by twice the
+//   rows), 2 stages: entity shape 1.50 ms against 1.60 with 64-key tiles,
+//   training nodes 0.200 against 0.211, decoder 0.325 against 0.318 (the
+//   `mma.sync` body this design replaced, timed by its own sweep in the same
+//   call: entity 2.02, decoder 0.36). One block per SM (its 240-register
+//   consumers).
 //
-// ATTN_BLOCK_K (keys per tile) and ATTN_WARPS (warps per block, 16 query rows
-// each) override the tile for a sweep (`python -m mre_tpu_torch.tools.tile_sweep`).
+// What bounds the design, as far as switching its parts off tells (PERF.md
+// §6): the memory pipeline alone (TMA ring, Q loads, O stores; each of a
+// (b, h)'s query tiles reads all its K and V) takes 0.24 ms of bf16's 0.54
+// at the entity shape, the products and the softmax the rest. The pipelining
+// hides the exponentials behind P·V; float32's split pass runs with no
+// product in flight. Tried and slower: the split on the producer
+// warpgroup's idle warps (before the pipelining), the V split under the
+// products (it spills), 2 bf16 warpgroups per block.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -92,52 +108,18 @@
 
 namespace {
 
-#ifndef ATTN_BLOCK_K
-#define ATTN_BLOCK_K 32
-#endif
-#ifndef ATTN_WARPS
-#define ATTN_WARPS 4
-#endif
-
-constexpr int BLOCK_K = ATTN_BLOCK_K;   // keys per shared-memory tile
-constexpr int WARPS = ATTN_WARPS;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BLOCK_Q = 16 * WARPS;     // query rows per block
-constexpr int STAGES = 2;
-static_assert(BLOCK_K % 16 == 0 && BLOCK_K >= 16, "BLOCK_K: a multiple of 16");
-
-// Row stride of a K or V tile in shared memory, in elements of T: 16 bytes of
-// padding keeps rows 16-byte aligned for cp.async and ldmatrix and spreads
-// the fragment loads over all 32 banks.
-template <int HD, typename T> __host__ __device__ constexpr int row_stride() {
-    return HD + 16 / (int)sizeof(T);
-}
-
-template <int HD, typename T> __host__ __device__ constexpr size_t smem_bytes() {
-    return STAGES * (2 * BLOCK_K * row_stride<HD, T>() * sizeof(T) + BLOCK_K * sizeof(float));
-}
+// ---------------------------------------------------------------------------
+// Shared by both bodies
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // x = hi + lo to about 21 bits, both TF32. hi is x rounded to the nearest
 // TF32, ties away from zero: the value cvt.rna.tf32.f32 gives for every finite
 // x, made with an integer add and a mask (cvt.rna lowers to a longer
-// sequence on sm_90a, and the float32 kernel was slower with it). lo is the
-// exact rest x - hi, truncated to TF32.
+// sequence on sm_90a). lo is the exact rest x - hi, truncated to TF32.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
     hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
@@ -154,8 +136,132 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
     lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// Rows g and g + 8 of a warp's 16 (the C/D fragment layout of `mma.sync`
+// m16n8 and of `wgmma` m64nN, o[4d + ..]), normalised and stored (rows at or
+// past N are not stored).
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* out, size_t base, int row0, int N, int g, int t,
+                                           const float* o, float l0, float l1) {
+    constexpr int DT = HD / 8;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const bool in0 = row0 + g < N, in1 = row0 + g + 8 < N;
+    T* o0 = out + base + (size_t)(row0 + g) * HD + 2 * t;
+    T* o1 = o0 + 8 * HD;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+        if (in0) store2(o0 + 8 * d, o[4 * d + 0] * inv0, o[4 * d + 1] * inv0);
+        if (in1) store2(o1 + 8 * d, o[4 * d + 2] * inv1, o[4 * d + 3] * inv1);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The `mma.sync` body, fed by `cp.async` (head_dim 80)
+// ---------------------------------------------------------------------------
+
+namespace mma_sync {
+
+// Key codes in shared memory beside each tile: a real key, a PAD key (logit
+// -1e7), a key beyond N (excluded: -inf).
+constexpr float KEY_REAL = 0.f, KEY_PAD = 1.f, KEY_OUT = 2.f;
+
+__device__ __forceinline__ float key_code(const float* pad, int key, int N) {
+    return key >= N ? KEY_OUT : (pad != nullptr && pad[key] > 0.f ? KEY_PAD : KEY_REAL);
+}
+
+// The masked, scaled logits of one lane's 2 rows × (2 keys per 8-key column
+// tile), in the C fragment layout of `mma.sync` m16n8 (s[4n + j]: row g, key
+// 8n + 2t + j; s[4n + 2 + j]: row g + 8), turned into this tile's
+// probabilities with the running max m and sum l updated and the output
+// fragment o (o[4d + ..], same layout) rescaled.
+template <int NT, int DT>
+__device__ __forceinline__ void online_softmax(float* s, float* o, const float* ct, int t,
+                                               float scale, float& m0, float& m1,
+                                               float& l0, float& l1) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const float code = ct[8 * n + 2 * t + j];
+            float x0 = s[4 * n + j] * scale, x1 = s[4 * n + 2 + j] * scale;
+            if (code == KEY_PAD) x0 = x1 = -1e7f;
+            else if (code == KEY_OUT) x0 = x1 = -INFINITY;
+            s[4 * n + j] = x0;
+            s[4 * n + 2 + j] = x1;
+            mx0 = fmaxf(mx0, x0);
+            mx1 = fmaxf(mx1, x1);
+        }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // a tile always holds a key below N, so the new max is finite
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);   // 0 on the first tile
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+        o[4 * d + 0] *= c0; o[4 * d + 1] *= c0;
+        o[4 * d + 2] *= c1; o[4 * d + 3] *= c1;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        s[4 * n + 0] = __expf(s[4 * n + 0] - mn0);
+        s[4 * n + 1] = __expf(s[4 * n + 1] - mn0);
+        s[4 * n + 2] = __expf(s[4 * n + 2] - mn1);
+        s[4 * n + 3] = __expf(s[4 * n + 3] - mn1);
+        l0 += s[4 * n + 0] + s[4 * n + 1];
+        l1 += s[4 * n + 2] + s[4 * n + 3];
+    }
+}
+
+// 32-key tiles, 4 warps (64 query rows) per block: the fastest of its sweep
+constexpr int BLOCK_K = 32;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BLOCK_Q = 16 * WARPS;
+constexpr int STAGES = 2;
+
+// Row stride of a K or V tile in shared memory, in elements of T: 16 bytes of
+// padding keeps rows 16-byte aligned for cp.async and ldmatrix and spreads
+// the fragment loads over all 32 banks.
+template <int HD, typename T> __host__ __device__ constexpr int row_stride() {
+    return HD + 16 / (int)sizeof(T);
+}
+
+template <int HD, typename T> __host__ __device__ constexpr size_t smem_bytes() {
+    return STAGES * (2 * BLOCK_K * row_stride<HD, T>() * sizeof(T) + BLOCK_K * sizeof(float));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // D += A·B, m16n8k8, TF32 in, float32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
     asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -163,7 +269,7 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 // D += A·B, m16n8k16, bfloat16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -177,17 +283,11 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                  : "memory");
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-// Key codes in shared memory beside each tile: a real key, a PAD key (logit
-// -1e7), a key beyond N (excluded: -inf).
-constexpr float KEY_REAL = 0.f, KEY_PAD = 1.f, KEY_OUT = 2.f;
-
+// One block per (b·h, BLOCK_Q query rows); each warp owns 16 query rows, the
+// m of `mma.sync` m16n8k*; K/V tiles of BLOCK_K keys through shared memory
+// with cp.async (16 bytes, zero-filled past N), two stages. float32: m16n8k8
+// TF32 in three passes, each warp splitting its own fragments; bfloat16:
+// m16n8k16, V through ldmatrix.trans.
 template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -233,11 +333,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             cp_async16(kd + r * LD + c, kg + off, in);
             cp_async16(vd + r * LD + c, vg + off, in);
         }
-        for (int i = tid; i < BLOCK_K; i += THREADS) {
-            const int key = k0 + i;
-            codes[stage * BLOCK_K + i] =
-                key >= N ? KEY_OUT : (pad != nullptr && pad[key] > 0.f ? KEY_PAD : KEY_REAL);
-        }
+        for (int i = tid; i < BLOCK_K; i += THREADS)
+            codes[stage * BLOCK_K + i] = key_code(pad, k0 + i, N);
     };
 
     // Q fragments (A of Q·K^T), rows row0+g and row0+g+8; rows beyond N read 0
@@ -268,9 +365,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
-    float o[DT][4];
+    float o[4 * DT];
 #pragma unroll
-    for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    for (int d = 0; d < 4 * DT; ++d) o[d] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows g, g+8
     float l0 = 0.f, l1 = 0.f;               // this lane's part of the running sums
 
@@ -286,12 +383,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (active) {
             const T* kt = ks + stage * BLOCK_K * LD;
             const T* vt = vs + stage * BLOCK_K * LD;
-            const float* ct = codes + stage * BLOCK_K;
 
-            // S = Q·K^T: lane holds S[g][8n+2t, +1] in s[n][0..1], S[g+8][..] in s[n][2..3]
-            float s[NT][4];
+            // S = Q·K^T: lane holds S[g][8n+2t, +1] in s[4n + 0..1], S[g+8][..] in s[4n + 2..3]
+            float s[4 * NT];
 #pragma unroll
-            for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+            for (int n = 0; n < 4 * NT; ++n) s[n] = 0.f;
 #pragma unroll
             for (int kk = 0; kk < KS; ++kk) {
                 if constexpr (F32) {
@@ -310,62 +406,22 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         uint32_t bh0, bl0, bh1, bl1;
                         split_tf32(kr[0], bh0, bl0);
                         split_tf32(kr[4], bh1, bl1);
-                        mma_tf32(s[n], al, bh0, bh1);
-                        mma_tf32(s[n], ah, bl0, bl1);
-                        mma_tf32(s[n], ah, bh0, bh1);
+                        mma_tf32(s + 4 * n, al, bh0, bh1);
+                        mma_tf32(s + 4 * n, ah, bl0, bl1);
+                        mma_tf32(s + 4 * n, ah, bh0, bh1);
                     }
                 } else {
 #pragma unroll
                     for (int n = 0; n < NT; ++n) {
                         // B[d][key] = K[key][d]: d = 16kk + 2t, +1 (+8), key = 8n + g
                         const T* kr = kt + (8 * n + g) * LD + 16 * kk + 2 * t;
-                        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                        mma_bf16(s + 4 * n, qa[kk], *reinterpret_cast<const uint32_t*>(kr),
                                  *reinterpret_cast<const uint32_t*>(kr + 8));
                     }
                 }
             }
 
-            // scale, then the where-select; this tile's row maxima
-            float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    const float code = ct[8 * n + 2 * t + j];
-                    float x0 = s[n][j] * scale, x1 = s[n][2 + j] * scale;
-                    if (code == KEY_PAD) x0 = x1 = -1e7f;
-                    else if (code == KEY_OUT) x0 = x1 = -INFINITY;
-                    s[n][j] = x0;
-                    s[n][2 + j] = x1;
-                    mx0 = fmaxf(mx0, x0);
-                    mx1 = fmaxf(mx1, x1);
-                }
-            }
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-            // a tile always holds a key below N, so the new max is finite
-            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-            const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);   // 0 on the first tile
-            m0 = mn0;
-            m1 = mn1;
-            l0 *= c0;
-            l1 *= c1;
-#pragma unroll
-            for (int d = 0; d < DT; ++d) {
-                o[d][0] *= c0; o[d][1] *= c0;
-                o[d][2] *= c1; o[d][3] *= c1;
-            }
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                s[n][0] = __expf(s[n][0] - mn0);
-                s[n][1] = __expf(s[n][1] - mn0);
-                s[n][2] = __expf(s[n][2] - mn1);
-                s[n][3] = __expf(s[n][3] - mn1);
-                l0 += s[n][0] + s[n][1];
-                l1 += s[n][2] + s[n][3];
-            }
+            online_softmax<NT, DT>(s, o, codes + stage * BLOCK_K, t, scale, m0, m1, l0, l1);
 
             // O += P·V
             if constexpr (F32) {
@@ -373,19 +429,19 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 for (int n = 0; n < NT; ++n) {
                     // keys 8n..8n+7 relabelled: A column t = key 2t, column t+4 = key 2t+1
                     uint32_t ah[4], al[4];
-                    split_tf32(s[n][0], ah[0], al[0]);
-                    split_tf32(s[n][2], ah[1], al[1]);
-                    split_tf32(s[n][1], ah[2], al[2]);
-                    split_tf32(s[n][3], ah[3], al[3]);
+                    split_tf32(s[4 * n + 0], ah[0], al[0]);
+                    split_tf32(s[4 * n + 2], ah[1], al[1]);
+                    split_tf32(s[4 * n + 1], ah[2], al[2]);
+                    split_tf32(s[4 * n + 3], ah[3], al[3]);
                     const float* vr = vt + (8 * n + 2 * t) * LD + g;
 #pragma unroll
                     for (int d = 0; d < DT; ++d) {
                         uint32_t bh0, bl0, bh1, bl1;
                         split_tf32(vr[8 * d], bh0, bl0);        // V[8n + 2t][8d + g]
                         split_tf32(vr[8 * d + LD], bh1, bl1);   // V[8n + 2t + 1][8d + g]
-                        mma_tf32(o[d], al, bh0, bh1);
-                        mma_tf32(o[d], ah, bl0, bl1);
-                        mma_tf32(o[d], ah, bh0, bh1);
+                        mma_tf32(o + 4 * d, al, bh0, bh1);
+                        mma_tf32(o + 4 * d, ah, bl0, bl1);
+                        mma_tf32(o + 4 * d, ah, bh0, bh1);
                     }
                 }
             } else {
@@ -394,19 +450,19 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
                     // keys 16kk..16kk+15: S tiles 2kk and 2kk+1 are the A fragment
                     uint32_t ah[4], al[4];
-                    split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
-                    split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
-                    split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
-                    split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+                    split_bf16(s[8 * kk + 0], s[8 * kk + 1], ah[0], al[0]);
+                    split_bf16(s[8 * kk + 2], s[8 * kk + 3], ah[1], al[1]);
+                    split_bf16(s[8 * kk + 4], s[8 * kk + 5], ah[2], al[2]);
+                    split_bf16(s[8 * kk + 6], s[8 * kk + 7], ah[3], al[3]);
                     const T* vr = vt + (16 * kk + (mi & 1) * 8 + r) * LD + (mi >> 1) * 8;
 #pragma unroll
                     for (int d = 0; d < DT; d += 2) {
                         uint32_t bv[4];   // b0, b1 of column tiles d and d + 1
                         ldmatrix_x4_trans(bv, vr + 8 * d);
-                        mma_bf16(o[d], al, bv[0], bv[1]);
-                        mma_bf16(o[d], ah, bv[0], bv[1]);
-                        mma_bf16(o[d + 1], al, bv[2], bv[3]);
-                        mma_bf16(o[d + 1], ah, bv[2], bv[3]);
+                        mma_bf16(o + 4 * d, al, bv[0], bv[1]);
+                        mma_bf16(o + 4 * d, ah, bv[0], bv[1]);
+                        mma_bf16(o + 4 * d + 4, al, bv[2], bv[3]);
+                        mma_bf16(o + 4 * d + 4, ah, bv[2], bv[3]);
                     }
                 }
             }
@@ -414,20 +470,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();            // every warp is done with this stage
     }
 
-    if (active) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-        T* o0 = out + base + (size_t)(row0 + g) * HD + 2 * t;
-        T* o1 = o0 + 8 * HD;
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-            if (in0) store2(o0 + 8 * d, o[d][0] * inv0, o[d][1] * inv0);
-            if (in1) store2(o1 + 8 * d, o[d][2] * inv1, o[d][3] * inv1);
-        }
-    }
+    if (active) store_rows<HD, T>(out, base, row0, N, g, t, o, l0, l1);
 }
 
 template <int HD, typename T>
@@ -444,13 +487,636 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
     return (int)cudaGetLastError();
 }
 
+}  // namespace mma_sync
+
+// ---------------------------------------------------------------------------
+// The Hopper body: warp-specialised, TMA ring + `wgmma` (head_dim 32 and 64)
+// ---------------------------------------------------------------------------
+
+namespace wgmma {
+
+constexpr int SMEM_MAX = 232448;          // a block's dynamic shared memory on sm_90
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The tile of each type: keys per TMA tile (BK, the N of S's wgmma), consumer
+// warpgroups of 64 query rows each (WG), tiles in the TMA ring (STAGES). A
+// sweep's ATTN_BLOCK_K / ATTN_WG / ATTN_STAGES override both types.
+//
+// Registers: ptxas and the SM size a block in whole warpgroups (2 consumer
+// warpgroups beside one producer warp get 168 registers a thread, which
+// spills float32's Q hi/lo, S, O and P hi/lo fragments). So with 2
+// consumer warpgroups the producer is a whole warpgroup that drops to 24
+// registers with `setmaxnreg` and gives the rest to the consumers; one of its
+// warps issues the loads. A lone consumer warpgroup keeps ptxas's own count
+// beside a lone producer warp.
+template <typename T> struct Cfg {
+    static constexpr bool F32 = std::is_same<T, float>::value;
+#ifdef ATTN_BLOCK_K
+    static constexpr int BK = ATTN_BLOCK_K;
+#else
+    static constexpr int BK = 32;
+#endif
+#ifdef ATTN_WG
+    static constexpr int WG = ATTN_WG;
+#else
+    static constexpr int WG = F32 ? 2 : 1;
+#endif
+#ifdef ATTN_STAGES
+    static constexpr int STAGES = ATTN_STAGES;
+#else
+    static constexpr int STAGES = F32 ? 2 : 4;
+#endif
+    static constexpr int CONSUMERS = 128 * WG;
+    static constexpr int BLOCK_Q = 64 * WG;
+    static constexpr int THREADS = CONSUMERS + (WG > 1 ? 128 : 32);
+    // 2 × 128 × 240 + 128 × 24 = 64512 of the SM's 65536 registers
+    static constexpr int CONSUMER_REGS = WG == 1 ? 0 : 240;
+    static_assert(BK == 32 || BK == 64, "ATTN_BLOCK_K: 32 or 64 (the wgmma N of S)");
+    static_assert(WG == 1 || WG == 2, "ATTN_WG: 1 or 2 consumer warpgroups");
+    static_assert(STAGES >= 2 && STAGES <= 4, "ATTN_STAGES: 2 to 4");
+};
+
+// Shared-memory layout of one (HD, T) instantiation, in bytes from a
+// 1024-aligned base (the period of the 128-byte swizzle):
+//   raw  [STAGES][K, V][BOXES][BK][ROW]   tiles as TMA lands them
+//   split[2][K hi, K lo][HD/32][BK][128]  float32 only, 128-byte swizzle
+//        [2][V hi, V lo][BK/32][HD][128]  V^T, keys relabelled
+//   codes[STAGES][BK] (mul, add) pairs beside the raw tiles, [2][BK] beside
+//   the split tiles (float32); mbarriers full[STAGES], empty[STAGES]
+template <int HD, typename T> struct Layout : Cfg<T> {
+    using C = Cfg<T>;
+    static constexpr int ES = sizeof(T);
+    static constexpr int ROW = HD * ES > 128 ? 128 : HD * ES;   // bytes per swizzled row
+    static constexpr int BOX = ROW / ES;                        // elements per TMA box row
+    static constexpr int BOXES = HD / BOX;
+    static constexpr int SWIZZLE = ROW == 128 ? 1 : 2;          // wgmma layout: 128B / 64B
+    static constexpr int TILE = C::BK * HD * ES;                // one tensor's tile
+    static constexpr int RAW = 0;
+    static constexpr int SPLIT = RAW + C::STAGES * 2 * TILE;
+    static constexpr int SPLIT_TILE = C::BK * HD * 4;
+    static constexpr int CODES = SPLIT + (C::F32 ? 2 * 4 * SPLIT_TILE : 0);
+    static constexpr int SPLIT_CODES = CODES + C::STAGES * C::BK * 8;
+    static constexpr int BARS = SPLIT_CODES + (C::F32 ? 2 * C::BK * 8 : 0);
+    static constexpr int BYTES = BARS + 2 * C::STAGES * 8 + 1024;  // + alignment slack
+    static_assert(HD % BOX == 0 && (HD * ES) % 64 == 0, "rows of 64 or 128 swizzled bytes");
+    static_assert(!C::F32 || ROW == 128, "float32 rows are 128-byte boxes");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+// box {c0 (hd), c1 (key), c2 (b·h)} of a 3-D tensor map -> shared, completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+    asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1, {%3, %4, %5}], [%2];\n"
+                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+                    "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of this warpgroup's committed wgmma groups are pending
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of r across a wgmma fence or wait
+template <int R> __device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int P> __device__ __forceinline__ void fence_regs(uint32_t (&r)[P][4]) {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode (1 = 128B, 2 = 64B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t swizzle) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+           ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)swizzle << 62);
+}
+
+#define ATTN_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                   "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ATTN_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define ATTN_REGS32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                    "%30, %31}"
+
+// D (+)= A·B, m64nNk16, bf16 in, f32 accumulate; A from registers, B from
+// shared memory (TRANS: MN-major B); scale_d 0 overwrites D
+template <int TRANS>
+__device__ __forceinline__ void mma_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " ATTN_REGS16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+                 : ATTN_D8(0), ATTN_D8(8)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+                   "n"(TRANS));
+}
+template <int TRANS>
+__device__ __forceinline__ void mma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ATTN_REGS32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+                 : ATTN_D8(0), ATTN_D8(8), ATTN_D8(16), ATTN_D8(24)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+                   "n"(TRANS));
+}
+// D (+)= A·B, m64nNk8, TF32 in, f32 accumulate; both K-major
+__device__ __forceinline__ void mma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " ATTN_REGS16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : ATTN_D8(0), ATTN_D8(8)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ATTN_REGS32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : ATTN_D8(0), ATTN_D8(8), ATTN_D8(16), ATTN_D8(24)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// float32: split a raw K or V tile into the hi/lo tiles `wgmma` reads. Raw
+// rows are 128-byte boxes of 32 floats, 16-byte chunk c of row r at chunk
+// c ^ (r % 8) (TMA's 128-byte swizzle); K's split tiles keep that layout, V's
+// are V^T: row d holds the keys of each 32-key block, 8-key group order
+// relabelled for P's fragment (key 2p at position p, key 2p + 1 at p + 4).
+// Consecutive threads take consecutive keys of one 4-float chunk: the reads
+// and the transposed writes hit 32 distinct banks.
+template <int HD, int BK, int NTHREADS, bool V>
+__device__ __forceinline__ void split_tile(const unsigned char* raw, unsigned char* hi_tile,
+                                           unsigned char* lo_tile, int tid) {
+    constexpr int CHUNKS = BK * HD / 4;
+#pragma unroll
+    for (int i = 0; i < (CHUNKS + NTHREADS - 1) / NTHREADS; ++i) {
+        const int c = tid + i * NTHREADS;
+        if (CHUNKS % NTHREADS != 0 && c >= CHUNKS) break;
+        const int key = c % BK, dc = c / BK;       // key, 4-float chunk of hd
+        const uint32_t off = (dc / 8) * BK * 128 + key * 128 + (((dc % 8) ^ (key & 7)) << 4);
+        const float4 x = *reinterpret_cast<const float4*>(raw + off);
+        if constexpr (!V) {
+            uint4 hi, lo;
+            split_tf32(x.x, hi.x, lo.x);
+            split_tf32(x.y, hi.y, lo.y);
+            split_tf32(x.z, hi.z, lo.z);
+            split_tf32(x.w, hi.w, lo.w);
+            *reinterpret_cast<uint4*>(hi_tile + off) = hi;
+            *reinterpret_cast<uint4*>(lo_tile + off) = lo;
+        } else {
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+            const int kl = key % 32;
+            const int pos = (kl & ~7) | ((kl & 7) >> 1) | ((kl & 1) << 2);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int d = 4 * dc + e;
+                const uint32_t voff = (key / 32) * HD * 128 + d * 128 +
+                                      ((((pos >> 2) ^ (d & 7)) << 4) | ((pos & 3) << 2));
+                uint32_t h, l;
+                split_tf32(xs[e], h, l);
+                *reinterpret_cast<uint32_t*>(hi_tile + voff) = h;
+                *reinterpret_cast<uint32_t*>(lo_tile + voff) = l;
+            }
+        }
+    }
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const T* __restrict__ q, const float* __restrict__ mask,
+                     T* __restrict__ out, int H, int N, float scale) {
+    using L = Layout<HD, T>;
+    constexpr bool F32 = L::F32;
+    constexpr int BK = L::BK, STAGES = L::STAGES, CONSUMERS = L::CONSUMERS;
+    constexpr int NT = BK / 8;              // 8-key column tiles of S
+    constexpr int DT = HD / 8;              // 8-wide column tiles of O
+    constexpr int KS = F32 ? HD / 8 : HD / 16;   // k-steps of Q·K^T (32 bytes each)
+
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    float* codes = reinterpret_cast<float*>(smem + L::CODES);
+    const uint32_t bars = smem_addr(smem + L::BARS);
+    auto full = [&](int s) { return bars + 8 * s; };               // tile landed
+    auto empty = [&](int s) { return bars + 8 * (STAGES + s); };   // tile read
+
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int tiles = (N + BK - 1) / BK;
+
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full(s), 32);                // the loading warp's lanes (+ TMA bytes)
+            mbar_init(empty(s), CONSUMERS / 32);   // one arrival per consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (tid >= CONSUMERS) {
+        // ---- producer: one warp's TMA loads of K and V, key codes beside them ----
+        if constexpr (L::CONSUMER_REGS > 0) {
+            asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+            if (tid >= CONSUMERS + 32) return;
+        }
+        const float* pad = mask != nullptr ? mask + (size_t)b * N : nullptr;
+        for (int it = 0; it < tiles; ++it) {
+            const int s = it % STAGES;
+            mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
+            const int k0 = it * BK;
+            for (int i = lane; i < BK; i += 32) {
+                // the logit in log2 units is fma(q·k, mul, add): scale·log2(e) at
+                // a real key, the where-select -1e7 at PAD, -inf past N
+                const int key = k0 + i;
+                const float2 c = key >= N ? make_float2(0.f, -INFINITY)
+                                 : pad != nullptr && pad[key] > 0.f
+                                     ? make_float2(0.f, -1e7f * LOG2E)
+                                     : make_float2(scale * LOG2E, 0.f);
+                reinterpret_cast<float2*>(codes)[s * BK + i] = c;
+            }
+            __syncwarp();
+            if (lane == 0) {
+                mbar_arrive_expect_tx(full(s), 2 * L::TILE);
+                const uint32_t kdst = smem_addr(smem + L::RAW + s * 2 * L::TILE);
+#pragma unroll
+                for (int x = 0; x < L::BOXES; ++x) {
+                    tma_load_3d(kdst + x * BK * L::ROW, &tk, full(s), x * L::BOX, k0, bh);
+                    tma_load_3d(kdst + L::TILE + x * BK * L::ROW, &tv, full(s), x * L::BOX,
+                                k0, bh);
+                }
+            } else {
+                mbar_arrive(full(s));
+            }
+        }
+        return;
+    }
+
+    // ---- consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) of the block ----
+    if constexpr (L::CONSUMER_REGS > 0)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(L::CONSUMER_REGS));
+    const int wg = tid / 128;
+    const int g = lane >> 2;        // fragment row of this lane
+    const int t = lane & 3;         // lane within its quad
+    const int wg_row0 = blockIdx.x * L::BLOCK_Q + wg * 64;
+    const int row0 = wg_row0 + ((tid % 128) >> 5) * 16;   // this warp's first row
+    const bool active = wg_row0 < N;                      // uniform over the warpgroup
+    const size_t base = (size_t)bh * N * HD;
+
+    // Q fragments (A of Q·K^T from registers), rows row0+g and row0+g+8; rows
+    // at or past N read 0. float32: hi and lo of each value.
+    const T* q0 = q + base + (size_t)(row0 + g) * HD;
+    const T* q1 = q0 + 8 * HD;
+    const bool in0 = row0 + g < N, in1 = row0 + g + 8 < N;
+    uint32_t qa[KS][4];                     // float32: hi; bf16: the pairs
+    uint32_t ql[F32 ? KS : 1][4];           // float32: lo
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+        if constexpr (F32) {
+            const int c = 8 * s + t;
+            split_tf32(in0 ? q0[c] : 0.f, qa[s][0], ql[s][0]);
+            split_tf32(in1 ? q1[c] : 0.f, qa[s][1], ql[s][1]);
+            split_tf32(in0 ? q0[c + 4] : 0.f, qa[s][2], ql[s][2]);
+            split_tf32(in1 ? q1[c + 4] : 0.f, qa[s][3], ql[s][3]);
+        } else {
+            const int c = 16 * s + 2 * t;
+            qa[s][0] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + c) : 0u;
+            qa[s][1] = in1 ? *reinterpret_cast<const uint32_t*>(q1 + c) : 0u;
+            qa[s][2] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + c + 8) : 0u;
+            qa[s][3] = in1 ? *reinterpret_cast<const uint32_t*>(q1 + c + 8) : 0u;
+        }
+    }
+
+    // The loop is pipelined inside the warpgroup: tile i's S = Q·K^T is issued
+    // with tile i-1's O += P·V, and tile i's exponentials run while that P·V
+    // is on the tensor cores; O is rescaled once it has landed.
+    constexpr int NP = F32 ? NT : BK / 16;  // A fragments of P·V (k8 / k16 steps)
+    float s[4 * NT];                        // S, then P: the wgmma D fragment of m64nBK
+    float o[4 * DT];                        // O: the D fragment of m64nHD
+    uint32_t ph[NP][4], pl[NP][4];          // the previous tile's P, hi and lo
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4 * DT; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ph[i][j] = pl[i][j] = 0u;
+    float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows g, g+8 (log2 units)
+    float l0 = 0.f, l1 = 0.f;               // this lane's part of the running sums
+
+    // O += P·V of the tile whose V (bf16: the raw stage; float32: its split
+    // V^T tiles, hi then lo) starts at shared address v
+    auto pv = [&](uint32_t v) {
+        if constexpr (F32) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                // keys 8n..8n+7: key block n / 4, bytes 32 (n % 4) of its rows
+                const uint32_t off = (n / 4) * HD * 128 + (n % 4) * 32;
+                const uint64_t vh = smem_desc(v + off, 16, 1024, L::SWIZZLE);
+                const uint64_t vl = smem_desc(v + L::SPLIT_TILE + off, 16, 1024, L::SWIZZLE);
+                mma_tf32(o, pl[n], vh, 1);
+                mma_tf32(o, ph[n], vl, 1);
+                mma_tf32(o, ph[n], vh, 1);
+            }
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < NP; ++kk) {
+                // keys 16kk..16kk+15: two 8-row groups of the MN-major V tile
+                const uint64_t bv = smem_desc(v + kk * 16 * L::ROW, BK * L::ROW, 8 * L::ROW,
+                                              L::SWIZZLE);
+                mma_bf16<1>(o, pl[kk], bv, 1);
+                mma_bf16<1>(o, ph[kk], bv, 1);
+            }
+        }
+        wgmma_commit();
+    };
+    // float32 splits each tile into double-buffered hi/lo tiles shared by the
+    // consumer warpgroups, its key codes beside them
+    auto split_of = [&](int it) { return smem + L::SPLIT + (it & 1) * 4 * L::SPLIT_TILE; };
+    auto raw_of = [&](int it) { return smem + L::RAW + (it % STAGES) * 2 * L::TILE; };
+    // where the V operand of tile it lies (float32: its V^T hi, then lo)
+    auto v_of = [&](int it) {
+        return F32 ? smem_addr(split_of(it)) + 2 * L::SPLIT_TILE : smem_addr(raw_of(it)) + L::TILE;
+    };
+    // Tile it has landed; float32 splits it and hands the raw stage back to
+    // the producer. Returns the tile's key codes.
+    auto stage_in = [&](int it) -> const float* {
+        const int st = it % STAGES;
+        mbar_wait(full(st), (it / STAGES) & 1);
+        const float* ct = codes + st * 2 * BK;
+        if constexpr (F32) {
+            float* sc = reinterpret_cast<float*>(smem + L::SPLIT_CODES) + (it & 1) * 2 * BK;
+            if (tid < 2 * BK) sc[tid] = ct[tid];
+            unsigned char* split = split_of(it);
+            split_tile<HD, BK, CONSUMERS, false>(raw_of(it), split, split + L::SPLIT_TILE, tid);
+            split_tile<HD, BK, CONSUMERS, true>(raw_of(it) + L::TILE, split + 2 * L::SPLIT_TILE,
+                                                split + 3 * L::SPLIT_TILE, tid);
+            fence_proxy_async();            // the generic writes, visible to wgmma
+            named_barrier_sync(1, CONSUMERS);
+            if (lane == 0) mbar_arrive(empty(st));
+            return sc;
+        }
+        return ct;
+    };
+    // S = Q·K^T of tile it
+    auto qk = [&](int it) {
+        if constexpr (F32) {
+            const uint32_t khi = smem_addr(split_of(it));
+            const uint32_t klo = khi + L::SPLIT_TILE;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+                // hd 8kk..8kk+7: box kk / 4, bytes 32 (kk % 4) of its rows
+                const uint32_t off = (kk / 4) * BK * 128 + (kk % 4) * 32;
+                const uint64_t kh = smem_desc(khi + off, 16, 1024, L::SWIZZLE);
+                const uint64_t kl = smem_desc(klo + off, 16, 1024, L::SWIZZLE);
+                mma_tf32(s, ql[kk], kh, kk > 0);
+                mma_tf32(s, qa[kk], kl, 1);
+                mma_tf32(s, qa[kk], kh, 1);
+            }
+        } else {
+            const uint32_t kt = smem_addr(raw_of(it));
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk)
+                mma_bf16<0>(s, qa[kk], smem_desc(kt + kk * 32, 16, 8 * L::ROW, L::SWIZZLE),
+                            kk > 0);
+        }
+        wgmma_commit();
+    };
+    // S's logits in log2 units (the where-select through the codes), the
+    // running max, this tile's probabilities and sums; c: O's rescale
+    auto softmax = [&](const float* ct, float& c0, float& c1) {
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const float4 c = reinterpret_cast<const float4*>(ct)[4 * n + t];  // keys 8n+2t, +1
+            s[4 * n + 0] = fmaf(s[4 * n + 0], c.x, c.y);
+            s[4 * n + 1] = fmaf(s[4 * n + 1], c.z, c.w);
+            s[4 * n + 2] = fmaf(s[4 * n + 2], c.x, c.y);
+            s[4 * n + 3] = fmaf(s[4 * n + 3], c.z, c.w);
+            mx0 = fmaxf(mx0, fmaxf(s[4 * n + 0], s[4 * n + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        // a tile always holds a key below N, so the new max is finite
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        c0 = ex2(m0 - mn0);                 // 0 on the first tile
+        c1 = ex2(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= c0;
+        l1 *= c1;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            s[4 * n + 0] = ex2(s[4 * n + 0] - mn0);
+            s[4 * n + 1] = ex2(s[4 * n + 1] - mn0);
+            s[4 * n + 2] = ex2(s[4 * n + 2] - mn1);
+            s[4 * n + 3] = ex2(s[4 * n + 3] - mn1);
+            l0 += s[4 * n + 0] + s[4 * n + 1];
+            l1 += s[4 * n + 2] + s[4 * n + 3];
+        }
+    };
+    // this tile's P as the A fragments of its P·V
+    auto make_p = [&]() {
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+            if constexpr (F32) {
+                // keys 8n..8n+7 relabelled: A column t = key 2t, column t+4 = key 2t+1
+                split_tf32(s[4 * n + 0], ph[n][0], pl[n][0]);
+                split_tf32(s[4 * n + 2], ph[n][1], pl[n][1]);
+                split_tf32(s[4 * n + 1], ph[n][2], pl[n][2]);
+                split_tf32(s[4 * n + 3], ph[n][3], pl[n][3]);
+            } else {
+                // keys 16n..16n+15: S tiles 2n and 2n+1 are the A fragment
+                split_bf16(s[8 * n + 0], s[8 * n + 1], ph[n][0], pl[n][0]);
+                split_bf16(s[8 * n + 2], s[8 * n + 3], ph[n][1], pl[n][1]);
+                split_bf16(s[8 * n + 4], s[8 * n + 5], ph[n][2], pl[n][2]);
+                split_bf16(s[8 * n + 6], s[8 * n + 7], ph[n][3], pl[n][3]);
+            }
+        }
+    };
+
+    float c0, c1;
+    const float* ct = stage_in(0);
+    if (active) {
+        fence_regs(s);
+        wgmma_fence();
+        qk(0);
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax(ct, c0, c1);                // O is still 0: nothing to rescale
+        make_p();
+    }
+    for (int it = 1; it < tiles; ++it) {
+        // float32: every warpgroup is done with the P·V of tile it - 2, whose
+        // split buffer tile it overwrites
+        if constexpr (F32) named_barrier_sync(2, CONSUMERS);
+        ct = stage_in(it);
+        if (active) {
+            fence_regs(s);
+            fence_regs(o);
+            fence_regs(ph);
+            fence_regs(pl);
+            wgmma_fence();
+            qk(it);
+            pv(v_of(it - 1));               // the previous tile's P·V
+            wgmma_wait<1>();                // S has landed, P·V may still run
+            fence_regs(s);
+            softmax(ct, c0, c1);
+            wgmma_wait<0>();                // the previous tile's P·V has landed
+            fence_regs(o);
+#pragma unroll
+            for (int d = 0; d < DT; ++d) {
+                o[4 * d + 0] *= c0; o[4 * d + 1] *= c0;
+                o[4 * d + 2] *= c1; o[4 * d + 3] *= c1;
+            }
+            make_p();
+        }
+        // bf16: the previous tile's stage is read (its P·V has landed)
+        if (!F32 && lane == 0) mbar_arrive(empty((it - 1) % STAGES));
+    }
+
+    if (active) {
+        fence_regs(o);
+        fence_regs(ph);
+        fence_regs(pl);
+        wgmma_fence();
+        pv(v_of(tiles - 1));
+        wgmma_wait<0>();
+        fence_regs(o);
+    }
+    if (!F32 && lane == 0) mbar_arrive(empty((tiles - 1) % STAGES));
+
+    if (active) store_rows<HD, T>(out, base, row0, N, g, t, o, l0, l1);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime (no
+// link against libcuda)
+EncodeTiled encoder() {
+    static EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// [B·H, N, HD] with HD innermost; boxes of [1, BK, BOX], swizzled as wgmma reads
+// them; rows past N zero-filled
+template <int HD, typename T>
+int encode(CUtensorMap* map, const void* ptr, int BH, int N) {
+    using L = Layout<HD, T>;
+    EncodeTiled fn = encoder();
+    if (fn == nullptr) return -2;
+    const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)N, (cuuint64_t)BH};
+    const cuuint64_t strides[2] = {(cuuint64_t)HD * L::ES, (cuuint64_t)N * HD * L::ES};
+    const cuuint32_t box[3] = {(cuuint32_t)L::BOX, (cuuint32_t)L::BK, 1};
+    const cuuint32_t step[3] = {1, 1, 1};
+    CUresult r = fn(map, L::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    3, const_cast<void*>(ptr), dims, strides, box, step,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE,
+                    L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+template <int HD, typename T>
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           void* out, int B, int H, int N, float scale, cudaStream_t stream) {
+    using L = Layout<HD, T>;
+    if (L::BYTES > SMEM_MAX) return -4;     // a sweep's tile too large for this head_dim
+    CUtensorMap tk, tv;
+    int rc = encode<HD, T>(&tk, k, B * H, N);
+    if (rc == 0) rc = encode<HD, T>(&tv, v, B * H, N);
+    if (rc != 0) return rc;
+    cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + L::BLOCK_Q - 1) / L::BLOCK_Q, B * H);
+    attention_fwd_kernel<HD, T><<<grid, L::THREADS, L::BYTES, stream>>>(
+        tk, tv, static_cast<const T*>(q), mask, static_cast<T*>(out), H, N, scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace wgmma
+
+// head_dim 32 and 64 run the Hopper body, 80 the `mma.sync` body
+template <int HD, typename T>
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           void* out, int B, int H, int N, float scale, cudaStream_t stream) {
+    if constexpr (HD <= 64)
+        return wgmma::launch<HD, T>(q, k, v, mask, out, B, H, N, scale, stream);
+    else
+        return mma_sync::launch<HD, T>(q, k, v, mask, out, B, H, N, scale, stream);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q, k, v, out: contiguous
-// [B, H, N, head_dim], each base 16-byte aligned (cp.async); mask: contiguous
-// float32 [B, N] (1.0 = PAD) or null. dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
-// head_dim/dtype with no instantiation.
+// [B, H, N, head_dim], each base 16-byte aligned (TMA, cp.async); mask:
+// contiguous float32 [B, N] (1.0 = PAD) or null. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError() after the launch (0 = launched), -1
+// for a head_dim/dtype with no instantiation, -2 when the driver has no
+// cuTensorMapEncodeTiled, -3 when it refuses a tensor map, -4 when the tile
+// does not fit in shared memory.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, int B, int H, int N,
                              int head_dim, int dtype, float scale, void* stream) {

@@ -9,9 +9,13 @@ the softmax.
 * ``attention_reference`` — plain PyTorch, einsums in float32. The CPU path,
   the comparison in ``chip_smoke.py`` and ``attention_impl="torch"`` use it.
 * ``attention_fwd_cuda`` — launches the hand-written sm_90a kernel in
-  ``csrc/attention_fwd.cu`` (a flash-attention forward on the tensor cores:
-  ``mma.sync``, three TF32 passes in float32, ``cp.async`` key/value
-  tiles). The kernel is compiled with ``nvcc`` at first
+  ``csrc/attention_fwd.cu``, a flash-attention forward on the tensor cores.
+  At head_dim 32 and 64 (``WGMMA_INSTANTIATIONS``) it is Hopper's own
+  design: warpgroup MMA (``wgmma``) fed by TMA tile loads that complete on
+  ``mbarrier``s, three TF32 passes in float32 (the K/V tiles split into hi
+  and lo in shared memory), P split into bf16 hi + lo in bfloat16; at
+  head_dim 80 (off the main path) the earlier ``mma.sync`` body. The kernel is
+  compiled with ``nvcc`` at first
   use into ``mre_tpu_torch/_build/`` and bound through a plain C interface
   with ``ctypes``. One kernel serves both TPU bodies: head_dim 64 and 80
   stand for ``_attention_kernel`` and count in ``LAUNCHES["attention_fwd"]``;
@@ -44,6 +48,10 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "attention_fwd.cu"
 BUILD_DIR = _PKG / "_build"
 HEAD_DIMS = (32, 64, 80)
+# the instantiations built on wgmma + TMA; the rest (head_dim 80) keep the
+# earlier mma.sync body. chip_smoke.py requires HGMMA and UTMALDG in each of these.
+WGMMA_INSTANTIATIONS = frozenset({(32, "float32"), (64, "float32"),
+                                  (32, "bfloat16"), (64, "bfloat16")})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"attention_fwd": 0, "attention_fwd_packed": 0}
@@ -86,7 +94,7 @@ def _nvcc() -> str:
 
 def build(defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/attention_fwd.cu`` for sm_90a (once per source hash
-    and ``defines``, e.g. ``("ATTN_BLOCK_K=128", "ATTN_WARPS=8")`` for a
+    and ``defines``, e.g. ``("ATTN_BLOCK_K=32", "ATTN_WG=1")`` for a
     tile sweep). The ptxas report goes beside the library. Safe under
     concurrent first use (``utils/build.py``)."""
     key = _SOURCE.read_bytes() + "\0".join(defines).encode()
@@ -136,33 +144,39 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-def sass_hmma_counts(sass: str) -> dict:
-    """The number of tensor-core ``HMMA`` instructions in each kernel
-    instantiation of a ``cuobjdump -sass`` listing: ``{(hd, dtype): n}``."""
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+
+
+def sass_counts(sass: str) -> dict:
+    """The tensor-core and TMA instructions in each kernel instantiation of
+    a ``cuobjdump -sass`` listing: ``{(hd, dtype): {"HMMA": n, "HGMMA": n,
+    "UTMALDG": n}}`` (``mma.sync``, ``wgmma`` and TMA tile loads)."""
     out, cur = {}, None
+    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
     for line in sass.splitlines():
         if "Function :" in line:
             cur = _instantiation(line)
             if cur is not None:
-                out[cur] = 0
-        elif cur is not None and "HMMA" in line:
-            out[cur] += 1
+                out[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None and (m := ops.search(line)):
+            out[cur][m.group(1)] += 1
     return out
 
 
 def build_report(lib: Path) -> dict:
     """ptxas registers and spills of every instantiation in a built library,
-    with its SASS ``HMMA`` count where the toolkit has ``cuobjdump`` (else
-    ``hmma`` is None)."""
+    with its SASS counts of ``HMMA``, ``HGMMA`` and ``UTMALDG`` (lower-case
+    keys) where the toolkit has ``cuobjdump`` (else each is None)."""
     report = ptxas_report(lib.with_suffix(".ptxas.txt").read_text())
     cuobjdump = Path(_nvcc()).with_name("cuobjdump")
-    hmma = {}
+    counts = {}
     if cuobjdump.exists():
         proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                               capture_output=True, text=True, check=True)
-        hmma = sass_hmma_counts(proc.stdout)
+        counts = sass_counts(proc.stdout)
     for key, rec in report.items():
-        rec["hmma"] = hmma.get(key)
+        for op in SASS_OPS:
+            rec[op.lower()] = counts[key][op] if key in counts else None
     return report
 
 
@@ -202,7 +216,7 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float, lib=None):
         raise ValueError(f"attention_fwd_cuda: B·H = {B * H} exceeds 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention_fwd_cuda: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):   # 16-byte cp.async copies
+    if any(t.data_ptr() % 16 for t in (q, k, v)):   # TMA and cp.async: 16-byte bases
         raise ValueError("attention_fwd_cuda: q, k, v must start 16-byte aligned")
     mask_ptr = None
     if padding_mask is not None:

@@ -1,15 +1,20 @@
 """Tile sweep of the attention kernel on one CUDA card.
 
-    python -m mre_tpu_torch.tools.tile_sweep [--block-k 16 32 64] [--warps 4 8]
+    python -m mre_tpu_torch.tools.tile_sweep [--block-k 32 64] [--wg 1 2] [--stages 2 3 4]
 
-Builds ``csrc/attention_fwd.cu`` once per (``ATTN_BLOCK_K``, ``ATTN_WARPS``)
-pair (nvcc runs in parallel): keys per shared-memory tile, and warps per
-block at 16 query rows each. Each build is checked against the plain
-version and timed with CUDA events at two main-path shapes, in float32 and
-bfloat16: the decoder of the training step (B 60, H 16, N 321, hd 32) and
-the entity sweep of serving (B 512, H 6, N 321, hd 64), both with
-entity-style padding. Prints the ptxas registers and spills of the hd-32
-and hd-64 instantiations of each build and one JSON line of results.
+Builds ``csrc/attention_fwd.cu`` once per (``ATTN_BLOCK_K``, ``ATTN_WG``,
+``ATTN_STAGES``) of the Hopper design (keys per TMA tile, consumer
+warpgroups of 64 query rows per block, tiles in the TMA ring); nvcc runs
+in parallel. Each build is checked against the plain
+version and timed with CUDA events, in float32 and bfloat16, at three
+main-path shapes: the decoder of the training step (B 60, H 16, N 321,
+hd 32), the entity sweep of serving (B 512, H 6, N 321, hd 64) and the
+training step's nodes (B 60, H 6, N 321, hd 64), all with entity-style
+padding. Builds are timed in turns, twice, so a drift of the card's clock
+shows as a difference between the two rounds. Prints the ptxas registers
+and spills of the hd-32 and hd-64 instantiations of each build and one
+JSON line of results; a tile that does not fit in shared memory is
+reported as refused.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.ops import attention
 
-SHAPES = {"decoder": (60, 16, 321, 32), "entity": (512, 6, 321, 64)}
+SHAPES = {"decoder": (60, 16, 321, 32), "entity": (512, 6, 321, 64),
+          "train_nodes": (60, 6, 321, 64)}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -51,43 +57,62 @@ def _inputs(shape, dev, gen):
     return qkv, pad.to(dev)
 
 
+def tiles(block_k, wg, stages) -> dict:
+    """{label: nvcc defines} of the builds to sweep."""
+    out = {}
+    for bk, w, st in itertools.product(block_k, wg, stages):
+        out[f"bk{bk}_wg{w}_st{st}"] = (f"ATTN_BLOCK_K={bk}", f"ATTN_WG={w}",
+                                       f"ATTN_STAGES={st}")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--block-k", type=int, nargs="+", default=[16, 32, 64])
-    p.add_argument("--warps", type=int, nargs="+", default=[4, 8])
+    p.add_argument("--block-k", type=int, nargs="+", default=[32, 64])
+    p.add_argument("--wg", type=int, nargs="+", default=[1, 2])
+    p.add_argument("--stages", type=int, nargs="+", default=[2, 3, 4])
+    p.add_argument("--rounds", type=int, default=2)
     args = p.parse_args()
     dev = resolve_device()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    tiles = list(itertools.product(args.block_k, args.warps))
-    with ThreadPoolExecutor(len(tiles)) as pool:
-        paths = list(pool.map(lambda bw: attention.build(
-            (f"ATTN_BLOCK_K={bw[0]}", f"ATTN_WARPS={bw[1]}")), tiles))
+    builds = tiles(args.block_k, args.wg, args.stages)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        paths = dict(zip(builds, pool.map(attention.build, builds.values())))
 
     gen = torch.Generator().manual_seed(0)
     inputs = {name: _inputs(shape, dev, gen) for name, shape in SHAPES.items()}
-    results = []
-    for (bk, warps), path in zip(tiles, paths):
-        lib = attention.bind(path)
+    libs = {}
+    for label, path in paths.items():
+        libs[label] = attention.bind(path)
         report = attention.ptxas_report(path.with_suffix(".ptxas.txt").read_text())
-        print(f"[ptxas] BLOCK_K {bk} WARPS {warps}: " + " | ".join(
+        print(f"[ptxas] {label}: " + " | ".join(
             f"hd{hd} {dt}: {r.get('registers')} registers, {r.get('spill_stores')} B spilled"
             for (hd, dt), r in sorted(report.items()) if hd in (32, 64)), flush=True)
-        for (name, shape), dtype in itertools.product(SHAPES.items(),
-                                                       (torch.float32, torch.bfloat16)):
-            (q, k, v), pad = [x.to(dtype) for x in inputs[name][0]], inputs[name][1]
-            scale = shape[-1] ** -0.5
+
+    results = []
+    for rnd, ((name, shape), dtype, label) in itertools.product(
+            range(args.rounds), itertools.product(SHAPES.items(),
+                                                  (torch.float32, torch.bfloat16), libs)):
+        lib = libs[label]
+        (q, k, v), pad = [x.to(dtype) for x in inputs[name][0]], inputs[name][1]
+        scale = shape[-1] ** -0.5
+        rec = dict(build=label, defines=builds[label], round=rnd, shape=name,
+                   dtype=str(dtype).split(".")[-1])
+        try:
             out = attention.attention_fwd_cuda(q, k, v, pad, scale, lib=lib)
+        except RuntimeError as e:                # e.g. the tile outgrows shared memory
+            rec["refused"] = str(e)
+        else:
             ref = attention.attention_reference(q, k, v, pad, scale)
             err = float((out.float() - ref.float()).abs().max())
             if not err <= TOL[dtype]:
-                raise AssertionError(f"BLOCK_K {bk} WARPS {warps} {name} {dtype}: max|d| {err}")
-            ms = _time_ms(lambda: attention.attention_fwd_cuda(q, k, v, pad, scale, lib=lib))
-            rec = dict(block_k=bk, warps=warps, shape=name, dtype=str(dtype).split(".")[-1],
-                       max_abs_err=err, ms=ms)
-            print(f"[sweep] {rec}", flush=True)
-            results.append(rec)
+                raise AssertionError(f"{label} {name} {dtype}: max|d| {err}")
+            rec.update(max_abs_err=err, ms=_time_ms(
+                lambda: attention.attention_fwd_cuda(q, k, v, pad, scale, lib=lib)))
+        print(f"[sweep] {rec}", flush=True)
+        results.append(rec)
     print(json.dumps({"card": card, "shapes": SHAPES, "sweep": results}), flush=True)
     return 0
 

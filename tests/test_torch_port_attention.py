@@ -237,4 +237,29 @@ def test_build_report_parsers():
             "        /*0590*/     FFMA R1, R2, R3, R4 ;\n"
             f"\t\tFunction : {bf16}\n"
             "        /*0100*/     HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")
-    assert port.sass_hmma_counts(sass) == {(64, "float32"): 2, (32, "bfloat16"): 1}
+    none = dict(HGMMA=0, UTMALDG=0)
+    assert port.sass_counts(sass) == {(64, "float32"): dict(none, HMMA=2),
+                                      (32, "bfloat16"): dict(none, HMMA=1)}
+    # the Hopper design's kernels (wgmma + TMA): their symbols take two
+    # tensor maps, and their SASS has HGMMA and UTMALDG in place of HMMA
+    hop = "_ZN12_GLOBAL__N_15wgmma20attention_fwd_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS3_PKT0_PKfPS4_iif"
+    sass += (f"\t\tFunction : {hop}\n"
+             "        /*0200*/     UTMALDG.3D [UR8], [UR4] ;\n"
+             "        /*0210*/     UTMALDG.3D [UR16], [UR12] ;\n"
+             "        /*0300*/     HGMMA.64x64x16.F32.BF16 R24, R152, gdesc[UR4], RZ, !UPT ;\n"
+             "        /*0310*/     HGMMA.64x64x16.F32.BF16 R24, R156, gdesc[UR8], R24 ;\n"
+             "        /*0320*/     HGMMA.64x64x16.F32.BF16 R24, R160, gdesc[UR12], R24, gsb0 ;\n"
+             "        /*0330*/     WARPGROUP.DEPBAR.LE gsb0, 0x0 ;\n")
+    assert port.sass_counts(sass)[(64, "bfloat16")] == dict(HMMA=0, HGMMA=3, UTMALDG=2)
+
+
+def test_tile_sweep_builds_every_tile():
+    """The sweep's builds: one per (key tile, consumer warpgroups, stages),
+    each named by its nvcc defines, so a result line says which tile it
+    timed."""
+    from mre_tpu_torch.tools import tile_sweep
+
+    builds = tile_sweep.tiles([32, 64], [1, 2], [2, 4])
+    assert len(builds) == 2 * 2 * 2
+    assert all(len(defines) == 3 for defines in builds.values())
+    assert builds["bk64_wg2_st4"] == ("ATTN_BLOCK_K=64", "ATTN_WG=2", "ATTN_STAGES=4")

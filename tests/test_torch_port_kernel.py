@@ -68,9 +68,46 @@ def test_kernel_many_waves(hd, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [17, 65, 321])
+def test_kernel_tiles_stay_inside_their_head(hd, dtype, N):
+    """The TMA tensor maps are [B·H, N, hd]: a key tile that runs past N is
+    zero-filled inside its own (b, h), never read from the next head. Every
+    odd head's K and V hold NaN: a leaked key's logit is NaN even under the
+    past-N code (NaN·0 − inf), and a leaked value row adds 0·NaN = NaN, so a
+    leak into the even head before it poisons that head's output. A store
+    of the even head's rows past N into the odd head after it would leave
+    finite values where every output of an odd head is NaN."""
+    q, k, v, pad = _case(2, 4, N, hd, dtype, "tail", seed=N + hd)
+    k[:, 1::2] = float("nan")
+    v[:, 1::2] = float("nan")
+    out = port.attention_fwd_cuda(q, k, v, pad, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[:, 0::2]).all())
+    assert bool(torch.isnan(out[:, 1::2]).all())
+    ref = port.attention_reference(q, k, v, pad, hd ** -0.5)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out[:, 0::2].float(), ref[:, 0::2].float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_all_rows_in_one_partial_tile(hd, dtype):
+    """N 40 < 64: every query row lies in one partial 64-row tile (rows past
+    N zero-filled and never stored), with PAD tails and a fully masked row."""
+    q, k, v, pad = _case(5, 3, 40, hd, dtype, "all_but_first", seed=hd)
+    pad[1] = 1.0
+    out = port.attention_fwd_cuda(q, k, v, pad, hd ** -0.5)
+    torch.cuda.synchronize()
+    ref = port.attention_reference(q, k, v, pad, hd ** -0.5)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+
+
 def test_wrapper_refuses_unaligned_base():
-    """cp.async copies 16 bytes: a q that starts one element into its
-    storage is refused, not copied."""
+    """TMA and cp.async take 16-byte aligned bases: a q that starts one
+    element into its storage is refused, not copied."""
     q, k, v, pad = _case(2, 2, 9, 64, torch.float32, "tail", seed=3)
     shifted = torch.empty(q.numel() + 1, device=q.device)[1:].view(q.shape)
     shifted.copy_(q)
