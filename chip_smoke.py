@@ -8,18 +8,19 @@ Phases (each raises, and the script exits non-zero, on any failure):
    kernel of the path is compiled from csrc/ with nvcc (all sources at once),
    and each instantiation's ptxas registers and spills and its SASS counts
    (cuobjdump) of HMMA (``mma.sync``), HGMMA (``wgmma``) and UTMALDG (TMA
-   tile loads) are printed. It fails on a spill at head_dim <= 64, on an
-   instantiation with no tensor-core instruction of either kind, and on an
-   instantiation of the Hopper design (``attention.WGMMA_INSTANTIATIONS``)
-   without HGMMA or UTMALDG;
+   tile loads) are printed. It fails unless the instantiations are
+   ``attention.WGMMA_INSTANTIATIONS`` (head_dim 32, 64 and 80 × float32 and
+   bfloat16), on a spill at any of them, and on one without HGMMA or
+   UTMALDG or with HMMA;
 2. kernels vs plain — each kernel's wrapper on the card at the shapes of the
    serving and training paths, held against its plain PyTorch version
    (float32 atol 1e-4, bfloat16 atol 2e-2), with CUDA-event times of the
    kernel, the plain version and the library call beside the bound worked
    out from shapes (float32 held to the TF32 tensor-core peak) and the
-   kernel's share of it. ``attention_fwd`` at head_dim 64 stands for the TPU's
-   ``_attention_kernel``, at head_dim 32 (the decoder) for
-   ``_attention_kernel_packed``. The learnability path's short sequences
+   kernel's share of it. ``attention_fwd`` at head_dim 64 (M3AE-small) and
+   80 (M3AE-huge: its entity and relation sweeps, a ragged N, a fully
+   masked row) stands for the TPU's ``_attention_kernel``, at head_dim 32
+   (the decoder) for ``_attention_kernel_packed``. The learnability path's short sequences
    (phase 10) are held too: N 17 and 33 at head_dim 64, N 33 at 32; and
    phase 12's: the main loop's step at image 96 (N 18 masked, 53 unmasked,
    17 edge descriptions at head_dim 64; the decoder's N 53 at 32) and
@@ -35,6 +36,16 @@ Phases (each raises, and the script exits non-zero, on any failure):
    same round through the plain attention, and the two must agree. One more
    kernel-path round runs under torch.profiler (device busy time, idle
    share, top device ops);
+3b. M3AE-huge — the same round at the full width and depth of M3AE-huge
+   (encoder 1280 wide, depth 32, 16 heads of 80: the kernel at head_dim
+   80), with phase 3's image, text and ZSL sizes, cut in scale only: 512
+   entities (one entity batch, the kernel at B512·H16·N321·hd80), 16
+   relations with 2 unseen, 500 candidates. float32 on a kernel-path and
+   a same-seed plain trainer under phase 3's gates (exactly depth ×
+   (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen) = 128 hd-80 launches and none of
+   another instantiation, none on the plain run); then bfloat16 under
+   phase 7's gates, against this phase's float32 embeddings (128 bf16
+   hd-80 launches); one kernel round of each type under torch.profiler;
 4. training — one ``train_epoch`` of the fusion step at the full width of
    M3AE-small, its depth cut to 4 / 4 (``tiny4``: encoder 384 wide, 6 heads
    of 64; decoder 512 wide, 16 heads of 32; phase 12 runs depth 12 / 8;
@@ -130,7 +141,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    cards or more, else a 2-rank gloo world of CUDA tensors on the one card
    (NCCL refuses two ranks on one card); spawned after the kernel build, on
    a 512-entity serving fixture: three data-parallel fusion steps of phase
-   4's config at M3AE-small's full depth 12 / 8
+   4's config (M3AE-small's widths at depth 4 / 4, ``tiny4``)
    (parameters within 5e-4·scale + 1e-5 and adam's first moment within 1e-4
    of each leaf's largest, across the two worlds; exactly 3 × depth and
    dec_depth launches per rank and step; the train state saved under the
@@ -253,9 +264,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    float32 one's. No attention launch
    in (a), (b) and (d). Every check prints before the failures are raised
    together;
-15. one JSON line of kernels (the float32 and the bfloat16 instantiations,
-   each with its launches on every path, the mesh's per rank), the card
-   line, and the result line.
+15. one JSON line of kernels (the float32 and the bfloat16 instantiations
+   at head_dim 64, 32 and 80, each with its launches on every path, the
+   mesh's per rank; head_dim 80 on phase 3b's path), the card line, and
+   the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -284,6 +296,7 @@ import torch.nn.functional as F
 from mre_tpu_torch.cli import main as cli
 from mre_tpu_torch.cli.args import read_options
 from mre_tpu_torch.core import checkpoint as ckpt
+from mre_tpu_torch.core.config import transformer_preset
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.data.fixtures import write_zsl_dataset
 from mre_tpu_torch.data.kg import TripleTable
@@ -314,6 +327,12 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE = dict(model_type="small", depth=12, image_size=256, patch_size=16,
              n_ent=2048, n_rel=32, n_unseen=4, triples_per_rel=200,
              n_candidates=500, image_px=64)
+
+# the serving slice at the full width and depth of M3AE-huge (encoder 1280
+# wide, depth 32, 16 heads of 80), cut in scale only: 512 entities (one
+# entity batch: the kernel at B512·H16·N321·hd80), 16 relations with 2
+# unseen, 500 candidates per query
+HUGE = dict(SLICE, model_type="huge", depth=32, n_ent=512, n_rel=16, n_unseen=2)
 
 # the fusion training step at the full width of M3AE-small, its depth cut to
 # 4 / 4 (tiny4; phase 12's step bench runs depth 12 / 8), and the default
@@ -463,7 +482,6 @@ def phase_kernels():
         # the ZSL GAN's generator: 256 rows × 2 relations of descriptions
         recs.append(attention_case("gan", 512, 6, 321, 64, dtype, "relation", gen, timed=True))
         recs.append(attention_case("no_mask", 64, 6, 321, 64, dtype, "none", gen))
-        recs.append(attention_case("huge_hd80", 64, 16, 321, 80, dtype, "entity", gen, timed=True))
         recs.append(attention_case("ragged_n37", 3, 6, 37, 64, dtype, "entity", gen))
         recs.append(attention_case("train_nodes", 60, 6, 321, 64, dtype, "entity", gen,
                                    timed=True))
@@ -479,6 +497,16 @@ def phase_kernels():
         recs.append(attention_case("decoder_all_pad_row", 4, 16, 321, 32, dtype,
                                    "all_pad_row", gen))
         recs.append(attention_case("decoder_no_mask", 8, 16, 321, 32, dtype, "none", gen))
+        # head_dim 80: _attention_kernel at M3AE-huge's encoder (16 heads of
+        # 80): its entity sweep (one batch of 512) and relation sweep (64
+        # descriptions), a ragged N and a fully masked row
+        recs.append(attention_case("huge_entity", 512, 16, 321, 80, dtype, "entity", gen,
+                                   timed=True))
+        recs.append(attention_case("huge_relation", 64, 16, 321, 80, dtype, "relation", gen,
+                                   timed=True))
+        recs.append(attention_case("huge_ragged_n37", 3, 16, 37, 80, dtype, "entity", gen))
+        recs.append(attention_case("huge_all_pad_row", 4, 16, 321, 80, dtype, "all_pad_row",
+                                   gen))
     # the learnability path (phase 10; tiny4: 6 heads of 64, the decoder 16
     # of 32) at its short sequences, from a generator of its own so the cases
     # above keep their inputs: [cls | 8 kept patches | 8 kept text] = 17 in
@@ -642,7 +670,12 @@ def rank_agreement(a, b):
     return float(np.mean(a == b)), int(np.abs(a - b).max())
 
 
-def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
+def encoder_head_dim(model_type: str) -> int:
+    preset = transformer_preset(model_type)
+    return preset.emb_dim // preset.num_heads
+
+
+def phase_slice(data_dir: str, cfg: dict = SLICE, device=None, tag: str = "slice"):
     """The serving round on a kernel-path and a same-seed plain trainer.
     Returns (info, served): ``served`` holds the fixture, both trainers and
     the kernel run's embeddings, for phase 5."""
@@ -691,7 +724,7 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
 
     reset_launches()
     ent, rel, res, times = serve(fusion)
-    launches = dict(attention.LAUNCHES)
+    launches, launches_hd = dict(attention.LAUNCHES), by_head_dim()
     t.update(times)
     # the serving path runs the encoder only: no decoder, no head_dim 32;
     # on the CPU (a rehearsal) the wrappers take the plain version
@@ -700,12 +733,15 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
                                                          + math.ceil(cfg["n_rel"] / 64)
                                                          + cfg["n_unseen"]),
               "attention_fwd_packed": 0}
-    log(f"[slice] kernel run: {times}  launches {launches}  expected {expect}")
-    log(f"[slice] metrics: hits10 {res['hits10']:.4f} hits5 {res['hits5']:.4f} "
+    expect_hd = {f"hd{encoder_head_dim(cfg['model_type'])}.float32": expect["attention_fwd"]} \
+        if on_card else {}
+    log(f"[{tag}] kernel run: {times}  launches {launches} {launches_hd}  expected {expect} "
+        f"{expect_hd}")
+    log(f"[{tag}] metrics: hits10 {res['hits10']:.4f} hits5 {res['hits5']:.4f} "
         f"hits1 {res['hits1']:.4f} mrr {res['mrr']:.6f} n {res['n']}")
-    if launches != expect:
-        raise AssertionError(f"attention kernels launched {launches} times on the "
-                             f"serving path, expected {expect}")
+    if launches != expect or launches_hd != expect_hd:
+        raise AssertionError(f"attention kernels launched {launches} {launches_hd} times on "
+                             f"the serving path, expected {expect} {expect_hd}")
     if ent.shape != (cfg["n_ent"], 200) or rel.shape != (cfg["n_rel"], 200):
         raise AssertionError(f"embedding shapes {tuple(ent.shape)}, {tuple(rel.shape)}")
     if not (torch.isfinite(ent).all() and torch.isfinite(rel).all()):
@@ -723,19 +759,20 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None):
     d_rel = float((rel - rel_p).abs().max())
     d_mrr = abs(res["mrr"] - res_p["mrr"])
     rank_agree = float(np.mean(res["ranks"] == res_p["ranks"]))
-    log(f"[slice] plain run: {times_p}  mrr {res_p['mrr']:.6f}")
-    log(f"[slice] kernel vs plain: max|d| ent {d_ent:.3e} rel {d_rel:.3e} "
+    log(f"[{tag}] plain run: {times_p}  mrr {res_p['mrr']:.6f}")
+    log(f"[{tag}] kernel vs plain: max|d| ent {d_ent:.3e} rel {d_rel:.3e} "
         f"|d mrr| {d_mrr:.3e} ranks equal {rank_agree:.4f}")
-    # float32 through 12 blocks; the online softmax sums in another order than
-    # the plain softmax
+    # float32 through depth blocks; the online softmax sums in another order
+    # than the plain softmax
     if d_ent > 1e-3 or d_rel > 1e-3 or d_mrr > 1e-3:
         raise AssertionError(f"kernel path disagrees with the plain path: "
                              f"ent {d_ent} rel {d_rel} mrr {d_mrr}")
     info = dict(times=t, times_plain=times_p, launches=launches, expected=expect,
+                launches_by_head_dim=launches_hd,
                 metrics={k: res[k] for k in ("hits10", "hits5", "hits1", "mrr", "n")},
                 mrr_plain=res_p["mrr"], max_abs_ent=d_ent, max_abs_rel=d_rel,
                 rank_agreement=rank_agree,
-                profile=profile_run(lambda: serve(fusion), "profile") if on_card else None)
+                profile=profile_run(lambda: serve(fusion), f"{tag}-profile") if on_card else None)
     served = dict(data_dir=data_dir, data=data, fusion=fusion, fusion_plain=fusion_plain,
                   ent=ent, rel=rel, ranks=res["ranks"])
     return info, served
@@ -1238,8 +1275,14 @@ def _phase_cli(cfg: dict, card: str) -> dict:
 
 
 def by_dtype() -> dict:
-    """The launch counts split by the kernel's instantiation, non-zero only."""
+    """The launch counts split by the kernel's dtype, non-zero only."""
     return {k: v for k, v in attention.LAUNCHES_BY_DTYPE.items() if v}
+
+
+def by_head_dim() -> dict:
+    """The launch counts split by the kernel's instantiation (head_dim and
+    dtype), non-zero only."""
+    return {k: v for k, v in attention.LAUNCHES_BY_HEAD_DIM.items() if v}
 
 
 def median_rel(a, ref) -> float:
@@ -1264,12 +1307,14 @@ class Gates:
             raise AssertionError(f"{self.tag}: {self.failed}")
 
 
-def phase_bf16_serving(served: dict, f32: dict, cfg: dict = SLICE, card: str = "no card"):
+def phase_bf16_serving(served: dict, f32: dict, cfg: dict = SLICE, card: str = "no card",
+                       tag: str = "bf16-serve", profile: bool = False):
     """The serving round in bfloat16 on a kernel-path and a same-seed plain
     trainer (the float32 round's weights: one seed), then with the image
-    cache on. Returns (info, bf16): ``bf16`` holds the kernel trainer and
-    its embeddings, for the GAN epochs."""
-    gates = Gates("bf16-serve")
+    cache on; ``profile``: one more kernel round under torch.profiler.
+    Returns (info, bf16): ``bf16`` holds the kernel trainer and its
+    embeddings, for the GAN epochs."""
+    gates = Gates(tag)
     data, fusion32 = served["data"], served["fusion"]
     store = MultimodalStore(data["mm_info"], data["rel_des"],
                             MultimodalPipelineConfig(image_size=cfg["image_size"]))
@@ -1308,7 +1353,10 @@ def phase_bf16_serving(served: dict, f32: dict, cfg: dict = SLICE, card: str = "
     expect = {"attention_fwd.bfloat16": cfg["depth"] * (
         math.ceil(cfg["n_ent"] / 512) + math.ceil(cfg["n_rel"] / 64) + cfg["n_unseen"])} \
         if on_card else {}
+    expect_hd = {f"hd{encoder_head_dim(cfg['model_type'])}.bfloat16":
+                 expect["attention_fwd.bfloat16"]} if on_card else {}
     ent, rel, res, times, launches = serve(fusion)
+    launches_hd = by_head_dim()
     ent_p, rel_p, res_p, times_p, launches_p = serve(fusion_plain)
     ranks = {"kernel vs plain": rank_agreement(res["ranks"], res_p["ranks"]),
              "plain vs float32": rank_agreement(res_p["ranks"], served["ranks"])}
@@ -1318,17 +1366,18 @@ def phase_bf16_serving(served: dict, f32: dict, cfg: dict = SLICE, card: str = "
                "rel plain vs float32": median_rel(rel_p, served["rel"]),
                "ent kernel vs plain": median_rel(ent, ent_p),
                "rel kernel vs plain": median_rel(rel, rel_p)}
-    log(f"[bf16-serve] kernel round {times} launches {launches} expected {expect}; plain round "
-        f"{times_p} launches {launches_p}")
-    log(f"[bf16-serve] float32 round (phase 3): ent_s {f32['ent_s']:.3f} rel_s "
+    log(f"[{tag}] kernel round {times} launches {launches} {launches_hd} expected {expect} "
+        f"{expect_hd}; plain round {times_p} launches {launches_p}")
+    log(f"[{tag}] float32 round: ent_s {f32['ent_s']:.3f} rel_s "
         f"{f32['rel_s']:.3f} eval_s {f32['eval_s']:.3f}; bfloat16: ent_s {times['ent_s']:.3f} "
         f"rel_s {times['rel_s']:.3f} eval_s {times['eval_s']:.3f} ({card})")
-    log(f"[bf16-serve] mrr bf16 kernel {res['mrr']:.6f} plain {res_p['mrr']:.6f} float32 "
+    log(f"[{tag}] mrr bf16 kernel {res['mrr']:.6f} plain {res_p['mrr']:.6f} float32 "
         f"{f32['mrr']:.6f}; ranks equal / max |d|: "
         + "  ".join(f"{k} {eq:.4f} / {d}" for k, (eq, d) in ranks.items()))
-    log("[bf16-serve] embeddings, median relative error: "
+    log(f"[{tag}] embeddings, median relative error: "
         + "  ".join(f"{k} {v:.5f}" for k, v in emb_rel.items()))
-    gates.check(launches == expect, f"kernel round launched {launches}, expected {expect}")
+    gates.check(launches == expect and launches_hd == expect_hd,
+                f"kernel round launched {launches} {launches_hd}, expected {expect} {expect_hd}")
     gates.check(not launches_p, f"plain round launched {launches_p}")
     gates.check(max(emb_rel.values()) < BF16_MEDIAN_REL,
                 f"median relative errors {emb_rel} (gate {BF16_MEDIAN_REL})")
@@ -1349,7 +1398,7 @@ def phase_bf16_serving(served: dict, f32: dict, cfg: dict = SLICE, card: str = "
     launches_c = by_dtype()
     n_batches = math.ceil(cfg["n_ent"] / 512)
     expect_c = {"attention_fwd.bfloat16": cfg["depth"] * n_batches} if on_card else {}
-    log(f"[bf16-serve] image cache: {store._img_cache.shape[0]} images at "
+    log(f"[{tag}] image cache: {store._img_cache.shape[0]} images at "
         f"{store._cache_size} px, {cache_bytes} bytes, precompute {secs:.2f} s; ent_s "
         f"{ent_s_cached:.3f} with the cache against {times['ent_s']:.3f} without ({card})")
     gates.check(launches_c == expect_c, f"cached sweep launched {launches_c}, expected {expect_c}")
@@ -1358,11 +1407,31 @@ def phase_bf16_serving(served: dict, f32: dict, cfg: dict = SLICE, card: str = "
     store._img_cache = None                # the plain trainer shares the store
     gates.close()
     info = dict(times=times, times_plain=times_p, times_float32=f32, launches=launches,
-                expected=expect, mrr=res["mrr"], mrr_plain=res_p["mrr"], mrr_float32=f32["mrr"],
+                expected=expect, launches_by_head_dim=launches_hd,
+                mrr=res["mrr"], mrr_plain=res_p["mrr"], mrr_float32=f32["mrr"],
                 rank_agreement=ranks, median_rel=emb_rel,
                 cache=dict(precompute_s=secs, bytes=cache_bytes, ent_s=ent_s_cached,
-                           ent_s_uncached=times["ent_s"], launches=launches_c))
+                           ent_s_uncached=times["ent_s"], launches=launches_c),
+                profile=profile_run(lambda: serve(fusion), f"{tag}-profile")
+                if profile and on_card else None)
     return info, dict(fusion=fusion, ent=ent, rel=rel)
+
+
+def phase_huge(data_dir: str, cfg: dict = HUGE, card: str = "no card", device=None) -> dict:
+    """Phase 3b: the serving round at M3AE-huge's full width and depth
+    (head_dim 80) through phase 3's entry points: float32 on a kernel-path
+    and a same-seed plain trainer under phase 3's gates, then bfloat16 under
+    phase 7's (against this phase's float32 embeddings), one kernel round of
+    each type profiled. Every launch is an hd-80 one of the round's type:
+    depth × (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen) per kernel round, none
+    on the plain rounds."""
+    info, served = phase_slice(data_dir, cfg, device, tag="huge")
+    f32 = dict(info["times"], mrr=info["metrics"]["mrr"])
+    info16, _ = phase_bf16_serving(served, f32, cfg, card, tag="huge-bf16", profile=True)
+    del served
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return dict(float32=info, bfloat16=info16)
 
 
 def phase_bf16_train(trained: dict, f32_step_ms: dict, cfg: dict = TRAIN,
@@ -1834,15 +1903,16 @@ def phase_kge(work_dir: str, cfg: dict = KGE, card: str = "no card", device=None
 # the mesh (phase 9): tools/dryrun_multichip's checks at full width, on a
 # 1-rank NCCL world and a larger one (``mesh_world``), all on one serving
 # fixture of 512 entities (one sweep batch of 512): the fusion step at phase 4's config
-# at full depth (M3AE-small, 12 seeds × 4 edges: 60 nodes), the tensor-parallel sweep,
+# (M3AE-small's widths at depth 4 / 4, tiny4, since phase 3b took its time;
+# 12 seeds × 4 edges: 60 nodes), the tensor-parallel sweep,
 # rel_shared and the GAN loop (ZSLConfig defaults); RotatE at
 # rotate_WN18RR_adv's width on a WN18RR-sized table, a 200 × 64 cut of its
 # batch.
 MESH = dict(
     serve=dict(SLICE, n_ent=512),
-    model=dict(model_type="small", patch_size=TRAIN["patch_size"], seed=192),
+    model=dict(model_type="tiny4", patch_size=TRAIN["patch_size"], seed=192),
     pipe=dict(image_size=TRAIN["image_size"]),
-    depth=12, dec_depth=8,
+    depth=4, dec_depth=4,
     fusion=dict(steps=3, resume=2),
     tp=dict(batch_size=512, n_model=2),
     zsl=dict(cfg=dict(emb_dim=200, noise_dim=15, test_sample=20, max_neighbor=50),
@@ -3151,25 +3221,23 @@ def main() -> int:
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     build = attention.build_report(lib)
     for (hd, dtype), r in sorted(build.items()):
-        design = "wgmma + TMA" if (hd, dtype) in attention.WGMMA_INSTANTIATIONS else "mma.sync"
-        log(f"[build] attention_fwd_kernel<{hd}, {dtype}> ({design}): {r['registers']} registers, "
+        log(f"[build] attention_fwd_kernel<{hd}, {dtype}>: {r['registers']} registers, "
             f"spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
             + ", ".join(f"{op} {r[op.lower()]}" for op in attention.SASS_OPS))
     uncounted = [key for key, r in build.items()
                  if any(r[op.lower()] is None for op in attention.SASS_OPS)]
     if uncounted:
         raise AssertionError(f"SASS not counted (no cuobjdump) for {uncounted}")
-    if len(build) != 2 * len(attention.HEAD_DIMS):
+    if set(build) != attention.WGMMA_INSTANTIATIONS:
         raise AssertionError(f"ptxas reported {sorted(build)}, expected every head_dim × dtype")
-    spills = [key for key, r in build.items() if key[0] <= 64 and r["spill_stores"]]
+    spills = [key for key, r in build.items() if r["spill_stores"] or r["spill_loads"]]
     if spills:
-        raise AssertionError(f"register spills at head_dim <= 64: {spills}")
-    if any(r["hmma"] == 0 and r["hgmma"] == 0 for r in build.values()):
-        raise AssertionError(f"an instantiation has no tensor-core instruction: {build}")
-    hopper = [key for key in attention.WGMMA_INSTANTIATIONS
-              if build[key]["hgmma"] == 0 or build[key]["utmaldg"] == 0]
+        raise AssertionError(f"register spills: {spills}")
+    hopper = [key for key, r in build.items()
+              if r["hgmma"] == 0 or r["utmaldg"] == 0 or r["hmma"] != 0]
     if hopper:
-        raise AssertionError(f"wgmma + TMA instantiations without HGMMA or UTMALDG: {hopper}")
+        raise AssertionError(f"instantiations without HGMMA or UTMALDG, or with HMMA "
+                             f"(mma.sync): {hopper}")
 
     phase_s = {"build": time.perf_counter() - t_start}
 
@@ -3184,6 +3252,7 @@ def main() -> int:
     recs = timed("2_kernels", phase_kernels)
     with tempfile.TemporaryDirectory() as tmp:
         slice_info, served = timed("3_serving", phase_slice, os.path.join(tmp, "serve"))
+        huge_info = timed("3b_huge", phase_huge, os.path.join(tmp, "huge"), card=card)
         train_info, trained = timed("4_training", phase_train, os.path.join(tmp, "train"))
         zsl_info = timed("5_zsl", phase_zsl, served, card=card)
         cli_info = timed("6_cli", phase_cli, os.path.join(tmp, "cli"), card=card)
@@ -3206,27 +3275,24 @@ def main() -> int:
         prof_info = timed("13_profiling", phase_profiling, kge_info["wn_dir"], card=card)
         parity_info = timed("14_parity", phase_parity, os.path.join(tmp, "parity"), card=card)
 
-    def entry(name, replaces, case, dtype="float32"):
-        """One kernel's line: its times at ``case`` in ``dtype``, its
-        launches on each path of this run (phases 3-6 in float32, phase 7 in
-        bfloat16, phase 8 in either, phase 9 in float32 on each rank, phase
-        10 in float32, phase 11 in either; phase 12's entry() in float32,
-        its step bench in either, its main loop in bfloat16; phases 13 and 14
-        in either)."""
-        rec = next(r for r in recs if r["case"] == case and r["dtype"] == dtype)
-        rec_name = name
+    def paths(name, dtype):
+        """A kernel's launches on each path of this run under its launch
+        key ``name`` (phases 3-6 in float32, phase 7 in bfloat16, phase 8
+        in either, phase 9 in float32 on each rank, phase 10 in float32,
+        phase 11 in either; phase 12's entry() in float32, its step bench
+        in either, its main loop in bfloat16; phases 13 and 14 in either)."""
+        key = f"{name}.{dtype}"
         if dtype == "float32":
             by_path = {"serving": slice_info["launches"][name],
                        "training": train_info["launches"][name],
                        "zsl_training": zsl_info["launches"][name],
                        "cli": cli_info["launches"][name],
-                       "kge": kge_info["launches"][f"{name}.float32"],
+                       "kge": kge_info["launches"][key],
                        # per rank of each world (its own process's counter)
                        "mesh": {r: c[name] for r, c in mesh_info["launches_by_rank"].items()},
-                       "trained": learn_info["launches"][f"{name}.float32"],
-                       "ranking_bench": bench_info["launches"][f"{name}.float32"]}
+                       "trained": learn_info["launches"][key],
+                       "ranking_bench": bench_info["launches"][key]}
         else:
-            key = f"{name}.{dtype}"
             by_path = {"serving": serve16_info["launches"].get(key, 0),
                        "training": train16_info["launches"].get(key, 0),
                        "zsl_training": gan16_info["launches"].get(key, 0),
@@ -3235,13 +3301,19 @@ def main() -> int:
                        "mesh": {r: 0 for r in mesh_info["launches_by_rank"]},
                        "trained": learn_info["launches"][key],
                        "ranking_bench": bench_info["launches"][key]}
-            name = f"{name}_bf16"
-        by_path.update({path: counts.get(f"{rec_name}.{dtype}", 0)
+        by_path.update({path: counts.get(key, 0)
                         for path, counts in drivers_info["launches"].items()})
-        by_path["profiling"] = prof_info["launches"][f"{rec_name}.{dtype}"]
-        by_path["parity"] = parity_info["launches_total"].get(f"{rec_name}.{dtype}", 0)
+        by_path["profiling"] = prof_info["launches"][key]
+        by_path["parity"] = parity_info["launches_total"].get(key, 0)
+        return by_path
+
+    def entry(name, replaces, case, by_path, dtype="float32"):
+        """One kernel's line: its times at ``case`` in ``dtype``, its
+        launches on each path of this run (``by_path``)."""
+        rec = next(r for r in recs if r["case"] == case and r["dtype"] == dtype)
         launches = sum(v if isinstance(v, int) else sum(v.values()) for v in by_path.values())
-        return {"name": name, "route": "cuda", "source": "mre_tpu_torch/csrc/attention_fwd.cu",
+        return {"name": name if dtype == "float32" else f"{name}_bf16", "route": "cuda",
+                "source": "mre_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": replaces, "launches": launches,
                 "launches_by_path": by_path, "case": case,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -3249,18 +3321,23 @@ def main() -> int:
                 "bound_by": rec["bound_by"], "share_of_bound": rec["share_of_bound"],
                 "library_ms": rec["library_ms"]}
 
+    kernel, packed = "mre_tpu/ops/pallas/attention.py:81", "mre_tpu/ops/pallas/attention.py:94"
     kernels = {"kernels": [
-        entry("attention_fwd", "mre_tpu/ops/pallas/attention.py:81", "entity"),
-        entry("attention_fwd_packed", "mre_tpu/ops/pallas/attention.py:94", "decoder"),
-        entry("attention_fwd", "mre_tpu/ops/pallas/attention.py:81", "entity", "bfloat16"),
-        entry("attention_fwd_packed", "mre_tpu/ops/pallas/attention.py:94", "decoder",
-              "bfloat16"),
-    ]}
+        line for dtype in ("float32", "bfloat16") for line in (
+            entry("attention_fwd", kernel, "entity", paths("attention_fwd", dtype), dtype),
+            entry("attention_fwd_packed", packed, "decoder", paths("attention_fwd_packed", dtype),
+                  dtype),
+            # head_dim 80 runs on the huge path (phase 3b) alone, counted
+            # by instantiation there
+            entry("attention_fwd_hd80", kernel, "huge_entity",
+                  {"huge_serving": huge_info[dtype]["launches_by_head_dim"].get(
+                      f"hd80.{dtype}", 0)}, dtype))]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
                        build={f"hd{hd}_{dt}": r for (hd, dt), r in build.items()},
-                       slice=slice_info, train=train_info, zsl=zsl_info, cli=cli_info,
+                       slice=slice_info, huge=huge_info, train=train_info, zsl=zsl_info,
+                       cli=cli_info,
                        bf16_serving=serve16_info, bf16_train=train16_info,
                        bf16_gan=gan16_info, bf16_cli=cli16_info, kge=kge_info,
                        mesh=mesh_info, trained=learn_info, ranking_bench=bench_info,

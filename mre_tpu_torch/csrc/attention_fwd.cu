@@ -28,56 +28,69 @@
 // second P·V pass below). float32 runs three TF32 passes (below) and so is
 // bound by operations: 3 × 81 GFLOP / 495 TFLOP/s = 0.49 ms, about 0.64 ms
 // with the float32 tiles below over N 321 (384 · 352 / 321² of the products).
+// At M3AE-huge's entity shape (B 512, H 16, N 321, hd 80: 270 GFLOP, 3.37 GB
+// in float32) the bound is 1.01 ms of bytes, the three-pass floor 1.64 ms;
+// bfloat16 0.50 ms of bytes.
 //
-// Two bodies:
+// One design for every head_dim (32, 64, 80) and both types, Hopper's own.
+// Warp-specialised blocks: WG consumer warpgroups of 64 query rows each and
+// one producer warp (with 2 consumer warpgroups, a whole producer warpgroup
+// that hands its registers to them with `setmaxnreg`; one of its warps
+// works). The producer keeps a ring of STAGES K/V tiles of BK keys in flight
+// with TMA (`cp.async.bulk.tensor`, 3-D tensor maps [B·H, N, hd] with hd
+// innermost, so a tile past N is zero-filled inside its own (b, h)),
+// completion on `mbarrier`s, and writes each key's code beside its tile: the
+// (mul, add) that turns q·k into the logit in log2 units with one FMA
+// (scale·log2 e at a real key, the where-select -1e7 at PAD, -inf past N), so
+// the softmax runs on ex2. The consumers run warpgroup MMA
+// (`wgmma.mma_async`) with A from registers: S = Q·K^T (m64nBKk16 /
+// m64nBKk8), the online softmax on the accumulators, O += P·V (m64nHDk16 /
+// m64nHDk8) with P taken from S's accumulators as the next A fragment (each
+// warp owns 16 rows, each quad of lanes two of them, so a row's max and sum
+// are two shuffles across its quad). The loop is pipelined
+// inside each warpgroup, as in FlashAttention-3: tile i's S is issued
+// together with tile i-1's P·V, and tile i's exponentials run while that P·V
+// is on the tensor cores.
+// - bfloat16: K and V are read by `wgmma` where TMA lands them (128-byte
+//   swizzle at hd 64 and 80, 64-byte at hd 32): K as the K-major B of Q·K^T,
+//   V as the MN-major B of P·V (the transpose bit). P is split into bf16
+//   hi + lo and multiplied in two passes, so P·V keeps float32 precision.
+// - float32: three TF32 passes (3xTF32): each operand x splits into
+//   hi = tf32(x) and lo = tf32(x - hi) (split_tf32) and hi·hi + hi·lo +
+//   lo·hi is summed in f32, about 21 bits of each operand; one TF32 pass
+//   keeps 10 and leaves errors of 1e-4..1e-3 at these shapes, outside the
+//   float32 tolerance (tests/test_torch_port_attention.py emulates both).
+//   TF32 `wgmma` takes K-major operands only, and B from shared memory, so
+//   the consumers split every raw tile in shared memory into hi and lo
+//   tiles in the 128-byte-swizzled layout `wgmma` reads: K as it is, V
+//   transposed to [hd][key]. The transpose writes each 8-key group in the
+//   order of P's register fragment (A column t = key 2t, column t + 4 =
+//   key 2t + 1): a sum over keys does not care about their order, so P
+//   never leaves registers. The split costs a pass over each tile per
+//   block; the 2 consumer warpgroups share it (named barriers), and the
+//   split tiles are double-buffered.
 //
-// * head_dim 32 and 64, both types: the Hopper design (`namespace wgmma`).
-//   Warp-specialised blocks: WG consumer warpgroups of 64 query rows each and
-//   one producer warp (with 2 consumer warpgroups, a whole producer
-//   warpgroup that hands its registers to them with `setmaxnreg`; one of its
-//   warps works). The producer keeps a ring of STAGES K/V tiles of BK
-//   keys in flight with TMA (`cp.async.bulk.tensor`, 3-D tensor maps
-//   [B·H, N, hd] with hd innermost, so a tile past N is zero-filled inside
-//   its own (b, h)), completion on `mbarrier`s, and writes each key's code
-//   beside its tile: the (mul, add) that turns q·k into the logit in log2
-//   units with one FMA (scale·log2 e at a real key, the where-select -1e7 at
-//   PAD, -inf past N), so the softmax runs on ex2. The consumers run
-//   warpgroup MMA (`wgmma.mma_async`) with A from registers: S = Q·K^T
-//   (m64nBKk16 / m64nBKk8), the online softmax on the accumulators, O += P·V
-//   with P taken from S's accumulators as the next A fragment (each warp owns
-//   16 rows, the layout of `mma.sync`, so the quad-shuffle max and sum carry
-//   over). The loop is pipelined inside each warpgroup, as in
-//   FlashAttention-3: tile i's S is issued together with tile i-1's P·V, and
-//   tile i's exponentials run while that P·V is on the tensor cores.
-//   - bfloat16: K and V are read by `wgmma` where TMA lands them (128-byte
-//     swizzle at hd 64, 64-byte at hd 32): K as the K-major B of Q·K^T, V as
-//     the MN-major B of P·V (the transpose bit). P is split into bf16
-//     hi + lo and multiplied in two passes, so P·V keeps float32 precision.
-//   - float32: three TF32 passes (3xTF32): each operand x splits into
-//     hi = tf32(x) and lo = tf32(x - hi) (split_tf32) and hi·hi + hi·lo +
-//     lo·hi is summed in f32, about 21 bits of each operand; one TF32 pass
-//     keeps 10 and leaves errors of 1e-4..1e-3 at these shapes, outside the
-//     float32 tolerance (tests/test_torch_port_attention.py emulates both).
-//     TF32 `wgmma` takes K-major operands only, and B from shared memory, so
-//     the consumers split every raw tile in shared memory into hi and lo
-//     tiles in the 128-byte-swizzled layout `wgmma` reads: K as it is, V
-//     transposed to [hd][key]. The transpose writes each 8-key group in the
-//     order of P's register fragment (A column t = key 2t, column t + 4 =
-//     key 2t + 1): a sum over keys does not care about their order, so P
-//     never leaves registers. The split costs a pass over each tile per
-//     block; the 2 consumer warpgroups share it (named barriers), and the
-//     split tiles are double-buffered.
-// * head_dim 80 (`huge`, off the main path), both types: the earlier body
-//   (`namespace mma_sync`), `mma.sync` m16n8k8 / m16n8k16 fed by `cp.async`.
-//   Its 160-byte bf16 rows (320-byte float32 rows) fit no swizzle mode
-//   whole, so TMA would land them as two boxes of unequal swizzle; the body
-//   stays until a PR needs hd 80.
+// head_dim 80 (M3AE-huge). Its rows, 160 bytes in bf16 and 320 in float32,
+// fill no swizzle mode whole. Each row is cut into boxes of one swizzle
+// width (64 bf16 or 32 floats, 128 bytes), ⌈80 / box⌉ of them: 2 in bf16,
+// 3 in float32, the last one only partly real. The tensor map's inner
+// extent stays 80, so TMA zero-fills the pad columns of the last box and
+// reads nothing for them; the transaction bytes an `mbarrier` expects count
+// whole boxes, pad included. One box width for every box keeps one tensor
+// map per tensor and one swizzle per operand; the other choice (bf16 only:
+// a second, 16-wide box with 32-byte swizzle) would save 48 bytes of shared
+// memory per key row for a second map and a second descriptor form. No
+// `wgmma` step reads the pad: S = Q·K^T takes 5 k16 (10 k8) steps, steps
+// 0-3 (0-7) in box 0 (boxes 0-1) and the rest in the last box's real
+// columns, and P·V's N is 80 (m64n80k16 / m64n80k8): in bf16 its MN-major V
+// spans two swizzle atoms, the descriptor's leading byte offset stepping from
+// box 0 to box 1; in float32 V^T has 80 rows of 32 keys.
 //
 // The tile (ATTN_BLOCK_K keys per tile, ATTN_WG consumer warpgroups,
 // ATTN_STAGES ring stages) is chosen by `python -m
 // mre_tpu_torch.tools.tile_sweep`, which builds this file with those -D
-// defines (they override both types). Chosen, on an H100 80GB HBM3 at
-// 700 W (PERF.md §6):
+// defines (they override both types and every head_dim). Chosen, on an H100
+// 80GB HBM3 at 700 W (PERF.md §6):
 // * bfloat16: 32-key tiles, 1 consumer warpgroup, 4 stages (entity shape
 //   0.543 ms against 0.566-1.12 for the other tiles; 2 warpgroups were slower
 //   at every shape, with or without `setmaxnreg`, and 2 stages starve the
@@ -88,7 +101,7 @@
 //   training nodes 0.200 against 0.211, decoder 0.325 against 0.318 (the
 //   `mma.sync` body this design replaced, timed by its own sweep in the same
 //   call: entity 2.02, decoder 0.36). One block per SM (its 240-register
-//   consumers).
+//   consumers). At hd 80 a 64-key float32 tile outgrows shared memory.
 //
 // What bounds the design, as far as switching its parts off tells (PERF.md
 // §6): the memory pipeline alone (TMA ring, Q loads, O stores; each of a
@@ -109,7 +122,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Shared by both bodies
+// Helpers
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -143,9 +156,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
     *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
-// Rows g and g + 8 of a warp's 16 (the C/D fragment layout of `mma.sync`
-// m16n8 and of `wgmma` m64nN, o[4d + ..]), normalised and stored (rows at or
-// past N are not stored).
+// Rows g and g + 8 of a warp's 16 (the D fragment layout of `wgmma` m64nN,
+// o[4d + ..]), normalised and stored (rows at or past N are not stored).
 template <int HD, typename T>
 __device__ __forceinline__ void store_rows(T* out, size_t base, int row0, int N, int g, int t,
                                            const float* o, float l0, float l1) {
@@ -166,331 +178,7 @@ __device__ __forceinline__ void store_rows(T* out, size_t base, int row0, int N,
 }
 
 // ---------------------------------------------------------------------------
-// The `mma.sync` body, fed by `cp.async` (head_dim 80)
-// ---------------------------------------------------------------------------
-
-namespace mma_sync {
-
-// Key codes in shared memory beside each tile: a real key, a PAD key (logit
-// -1e7), a key beyond N (excluded: -inf).
-constexpr float KEY_REAL = 0.f, KEY_PAD = 1.f, KEY_OUT = 2.f;
-
-__device__ __forceinline__ float key_code(const float* pad, int key, int N) {
-    return key >= N ? KEY_OUT : (pad != nullptr && pad[key] > 0.f ? KEY_PAD : KEY_REAL);
-}
-
-// The masked, scaled logits of one lane's 2 rows × (2 keys per 8-key column
-// tile), in the C fragment layout of `mma.sync` m16n8 (s[4n + j]: row g, key
-// 8n + 2t + j; s[4n + 2 + j]: row g + 8), turned into this tile's
-// probabilities with the running max m and sum l updated and the output
-// fragment o (o[4d + ..], same layout) rescaled.
-template <int NT, int DT>
-__device__ __forceinline__ void online_softmax(float* s, float* o, const float* ct, int t,
-                                               float scale, float& m0, float& m1,
-                                               float& l0, float& l1) {
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const float code = ct[8 * n + 2 * t + j];
-            float x0 = s[4 * n + j] * scale, x1 = s[4 * n + 2 + j] * scale;
-            if (code == KEY_PAD) x0 = x1 = -1e7f;
-            else if (code == KEY_OUT) x0 = x1 = -INFINITY;
-            s[4 * n + j] = x0;
-            s[4 * n + 2 + j] = x1;
-            mx0 = fmaxf(mx0, x0);
-            mx1 = fmaxf(mx1, x1);
-        }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // a tile always holds a key below N, so the new max is finite
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);   // 0 on the first tile
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-        o[4 * d + 0] *= c0; o[4 * d + 1] *= c0;
-        o[4 * d + 2] *= c1; o[4 * d + 3] *= c1;
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-        s[4 * n + 0] = __expf(s[4 * n + 0] - mn0);
-        s[4 * n + 1] = __expf(s[4 * n + 1] - mn0);
-        s[4 * n + 2] = __expf(s[4 * n + 2] - mn1);
-        s[4 * n + 3] = __expf(s[4 * n + 3] - mn1);
-        l0 += s[4 * n + 0] + s[4 * n + 1];
-        l1 += s[4 * n + 2] + s[4 * n + 3];
-    }
-}
-
-// 32-key tiles, 4 warps (64 query rows) per block: the fastest of its sweep
-constexpr int BLOCK_K = 32;
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BLOCK_Q = 16 * WARPS;
-constexpr int STAGES = 2;
-
-// Row stride of a K or V tile in shared memory, in elements of T: 16 bytes of
-// padding keeps rows 16-byte aligned for cp.async and ldmatrix and spreads
-// the fragment loads over all 32 banks.
-template <int HD, typename T> __host__ __device__ constexpr int row_stride() {
-    return HD + 16 / (int)sizeof(T);
-}
-
-template <int HD, typename T> __host__ __device__ constexpr size_t smem_bytes() {
-    return STAGES * (2 * BLOCK_K * row_stride<HD, T>() * sizeof(T) + BLOCK_K * sizeof(float));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// D += A·B, m16n8k8, TF32 in, float32 accumulate
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// D += A·B, m16n8k16, bfloat16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// four 8x8 b16 matrices, transposed; lanes 8i..8i+7 give matrix i's rows
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
-                 : "memory");
-}
-
-// One block per (b·h, BLOCK_Q query rows); each warp owns 16 query rows, the
-// m of `mma.sync` m16n8k*; K/V tiles of BLOCK_K keys through shared memory
-// with cp.async (16 bytes, zero-filled past N), two stages. float32: m16n8k8
-// TF32 in three passes, each warp splitting its own fragments; bfloat16:
-// m16n8k16, V through ldmatrix.trans.
-template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ mask,
-                     T* __restrict__ out, int H, int N, float scale) {
-    constexpr bool F32 = std::is_same<T, float>::value;
-    constexpr int LD = row_stride<HD, T>();
-    constexpr int NT = BLOCK_K / 8;         // 8-key column tiles of S
-    constexpr int DT = HD / 8;              // 8-wide column tiles of O
-    constexpr int KS = F32 ? HD / 8 : HD / 16;   // k-steps of Q·K^T
-    // float32 keeps Q's hi and lo fragments in registers up to hd 64; at hd
-    // 80 it keeps Q as is and splits it at each use, to stay clear of spills
-    constexpr bool Q_SPLIT = F32 && HD <= 64;
-    constexpr int CHUNKS = HD * (int)sizeof(T) / 16;   // 16-byte chunks per row
-    constexpr int CHUNK = 16 / (int)sizeof(T);         // elements per chunk
-
-    extern __shared__ __align__(16) unsigned char smem[];
-    T* ks = reinterpret_cast<T*>(smem);                           // [STAGES][BLOCK_K][LD]
-    T* vs = ks + STAGES * BLOCK_K * LD;                           // [STAGES][BLOCK_K][LD]
-    float* codes = reinterpret_cast<float*>(vs + STAGES * BLOCK_K * LD);  // [STAGES][BLOCK_K]
-
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int g = lane >> 2;        // fragment row (and B column) of this lane
-    const int t = lane & 3;         // lane within its quad
-    const int row0 = blockIdx.x * BLOCK_Q + (tid >> 5) * 16;   // this warp's first row
-    const bool active = row0 < N;
-    const size_t base = (size_t)bh * N * HD;
-    const T* kg = k + base;
-    const T* vg = v + base;
-    const float* pad = mask != nullptr ? mask + (size_t)b * N : nullptr;
-
-    auto load_tile = [&](int tile, int stage) {
-        const int k0 = tile * BLOCK_K;
-        T* kd = ks + stage * BLOCK_K * LD;
-        T* vd = vs + stage * BLOCK_K * LD;
-        for (int i = tid; i < BLOCK_K * CHUNKS; i += THREADS) {
-            const int r = i / CHUNKS, c = (i % CHUNKS) * CHUNK;
-            const bool in = k0 + r < N;
-            const size_t off = (size_t)(in ? k0 + r : 0) * HD + c;
-            cp_async16(kd + r * LD + c, kg + off, in);
-            cp_async16(vd + r * LD + c, vg + off, in);
-        }
-        for (int i = tid; i < BLOCK_K; i += THREADS)
-            codes[stage * BLOCK_K + i] = key_code(pad, k0 + i, N);
-    };
-
-    // Q fragments (A of Q·K^T), rows row0+g and row0+g+8; rows beyond N read 0
-    const T* q0 = q + base + (size_t)(row0 + g) * HD;
-    const T* q1 = q0 + 8 * HD;
-    const bool in0 = row0 + g < N, in1 = row0 + g + 8 < N;
-    float qf[F32 ? KS : 1][4];              // float32, as is
-    uint32_t qa[KS][4];                     // float32: hi (Q_SPLIT); bf16: the pairs
-    uint32_t ql[Q_SPLIT ? KS : 1][4];       // float32: lo (Q_SPLIT)
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-        if constexpr (F32) {
-            const int c = 8 * s + t;
-            qf[s][0] = in0 ? q0[c] : 0.f;
-            qf[s][1] = in1 ? q1[c] : 0.f;
-            qf[s][2] = in0 ? q0[c + 4] : 0.f;
-            qf[s][3] = in1 ? q1[c + 4] : 0.f;
-            if constexpr (Q_SPLIT) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i) split_tf32(qf[s][i], qa[s][i], ql[s][i]);
-            }
-        } else {
-            const int c = 16 * s + 2 * t;
-            qa[s][0] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + c) : 0u;
-            qa[s][1] = in1 ? *reinterpret_cast<const uint32_t*>(q1 + c) : 0u;
-            qa[s][2] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + c + 8) : 0u;
-            qa[s][3] = in1 ? *reinterpret_cast<const uint32_t*>(q1 + c + 8) : 0u;
-        }
-    }
-
-    float o[4 * DT];
-#pragma unroll
-    for (int d = 0; d < 4 * DT; ++d) o[d] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows g, g+8
-    float l0 = 0.f, l1 = 0.f;               // this lane's part of the running sums
-
-    const int tiles = (N + BLOCK_K - 1) / BLOCK_K;
-    load_tile(0, 0);
-    cp_async_commit();
-    for (int it = 0; it < tiles; ++it) {
-        const int stage = it & 1;
-        if (it + 1 < tiles) load_tile(it + 1, stage ^ 1);
-        cp_async_commit();          // an empty group on the last tile keeps the count
-        cp_async_wait_one();        // this tile has landed (for this thread) ...
-        __syncthreads();            // ... and for every thread
-        if (active) {
-            const T* kt = ks + stage * BLOCK_K * LD;
-            const T* vt = vs + stage * BLOCK_K * LD;
-
-            // S = Q·K^T: lane holds S[g][8n+2t, +1] in s[4n + 0..1], S[g+8][..] in s[4n + 2..3]
-            float s[4 * NT];
-#pragma unroll
-            for (int n = 0; n < 4 * NT; ++n) s[n] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < KS; ++kk) {
-                if constexpr (F32) {
-                    uint32_t ah[4], al[4];
-                    if constexpr (Q_SPLIT) {
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) { ah[i] = qa[kk][i]; al[i] = ql[kk][i]; }
-                    } else {
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) split_tf32(qf[kk][i], ah[i], al[i]);
-                    }
-#pragma unroll
-                    for (int n = 0; n < NT; ++n) {
-                        // B[d][key] = K[key][d]: d = 8kk + t (+4), key = 8n + g
-                        const float* kr = kt + (8 * n + g) * LD + 8 * kk + t;
-                        uint32_t bh0, bl0, bh1, bl1;
-                        split_tf32(kr[0], bh0, bl0);
-                        split_tf32(kr[4], bh1, bl1);
-                        mma_tf32(s + 4 * n, al, bh0, bh1);
-                        mma_tf32(s + 4 * n, ah, bl0, bl1);
-                        mma_tf32(s + 4 * n, ah, bh0, bh1);
-                    }
-                } else {
-#pragma unroll
-                    for (int n = 0; n < NT; ++n) {
-                        // B[d][key] = K[key][d]: d = 16kk + 2t, +1 (+8), key = 8n + g
-                        const T* kr = kt + (8 * n + g) * LD + 16 * kk + 2 * t;
-                        mma_bf16(s + 4 * n, qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                                 *reinterpret_cast<const uint32_t*>(kr + 8));
-                    }
-                }
-            }
-
-            online_softmax<NT, DT>(s, o, codes + stage * BLOCK_K, t, scale, m0, m1, l0, l1);
-
-            // O += P·V
-            if constexpr (F32) {
-#pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    // keys 8n..8n+7 relabelled: A column t = key 2t, column t+4 = key 2t+1
-                    uint32_t ah[4], al[4];
-                    split_tf32(s[4 * n + 0], ah[0], al[0]);
-                    split_tf32(s[4 * n + 2], ah[1], al[1]);
-                    split_tf32(s[4 * n + 1], ah[2], al[2]);
-                    split_tf32(s[4 * n + 3], ah[3], al[3]);
-                    const float* vr = vt + (8 * n + 2 * t) * LD + g;
-#pragma unroll
-                    for (int d = 0; d < DT; ++d) {
-                        uint32_t bh0, bl0, bh1, bl1;
-                        split_tf32(vr[8 * d], bh0, bl0);        // V[8n + 2t][8d + g]
-                        split_tf32(vr[8 * d + LD], bh1, bl1);   // V[8n + 2t + 1][8d + g]
-                        mma_tf32(o + 4 * d, al, bh0, bh1);
-                        mma_tf32(o + 4 * d, ah, bl0, bl1);
-                        mma_tf32(o + 4 * d, ah, bh0, bh1);
-                    }
-                }
-            } else {
-                const int mi = lane >> 3, r = lane & 7;   // ldmatrix: matrix and row
-#pragma unroll
-                for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
-                    // keys 16kk..16kk+15: S tiles 2kk and 2kk+1 are the A fragment
-                    uint32_t ah[4], al[4];
-                    split_bf16(s[8 * kk + 0], s[8 * kk + 1], ah[0], al[0]);
-                    split_bf16(s[8 * kk + 2], s[8 * kk + 3], ah[1], al[1]);
-                    split_bf16(s[8 * kk + 4], s[8 * kk + 5], ah[2], al[2]);
-                    split_bf16(s[8 * kk + 6], s[8 * kk + 7], ah[3], al[3]);
-                    const T* vr = vt + (16 * kk + (mi & 1) * 8 + r) * LD + (mi >> 1) * 8;
-#pragma unroll
-                    for (int d = 0; d < DT; d += 2) {
-                        uint32_t bv[4];   // b0, b1 of column tiles d and d + 1
-                        ldmatrix_x4_trans(bv, vr + 8 * d);
-                        mma_bf16(o + 4 * d, al, bv[0], bv[1]);
-                        mma_bf16(o + 4 * d, ah, bv[0], bv[1]);
-                        mma_bf16(o + 4 * d + 4, al, bv[2], bv[3]);
-                        mma_bf16(o + 4 * d + 4, ah, bv[2], bv[3]);
-                    }
-                }
-            }
-        }
-        __syncthreads();            // every warp is done with this stage
-    }
-
-    if (active) store_rows<HD, T>(out, base, row0, N, g, t, o, l0, l1);
-}
-
-template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, const float* mask,
-           void* out, int B, int H, int N, float scale, cudaStream_t stream) {
-    constexpr size_t smem = smem_bytes<HD, T>();
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + BLOCK_Q - 1) / BLOCK_Q, B * H);
-    attention_fwd_kernel<HD, T><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        mask, static_cast<T*>(out), H, N, scale);
-    return (int)cudaGetLastError();
-}
-
-}  // namespace mma_sync
-
-// ---------------------------------------------------------------------------
-// The Hopper body: warp-specialised, TMA ring + `wgmma` (head_dim 32 and 64)
+// The kernel: warp-specialised, TMA ring + `wgmma`
 // ---------------------------------------------------------------------------
 
 namespace wgmma {
@@ -539,27 +227,33 @@ template <typename T> struct Cfg {
 // Shared-memory layout of one (HD, T) instantiation, in bytes from a
 // 1024-aligned base (the period of the 128-byte swizzle):
 //   raw  [STAGES][K, V][BOXES][BK][ROW]   tiles as TMA lands them
-//   split[2][K hi, K lo][HD/32][BK][128]  float32 only, 128-byte swizzle
-//        [2][V hi, V lo][BK/32][HD][128]  V^T, keys relabelled
+//   split[2][K hi, K lo][BOXES][BK][128]  float32 only, 128-byte swizzle
+//        [2][V hi, V lo][BK/32][HD][128]  V^T, keys relabelled (within a
+//                                         K tile's bytes: HD·4 <= BOXES·128)
 //   codes[STAGES][BK] (mul, add) pairs beside the raw tiles, [2][BK] beside
 //   the split tiles (float32); mbarriers full[STAGES], empty[STAGES]
+// A row of HD elements is BOXES boxes of one swizzle width; at hd 80 the
+// last box is part pad (zero-filled by TMA, never read by `wgmma`).
 template <int HD, typename T> struct Layout : Cfg<T> {
     using C = Cfg<T>;
     static constexpr int ES = sizeof(T);
-    static constexpr int ROW = HD * ES > 128 ? 128 : HD * ES;   // bytes per swizzled row
+    static constexpr int ROW = HD * ES > 128 ? 128 : HD * ES;   // bytes per swizzled box row
     static constexpr int BOX = ROW / ES;                        // elements per TMA box row
-    static constexpr int BOXES = HD / BOX;
+    static constexpr int BOXES = (HD + BOX - 1) / BOX;
+    static constexpr int STEPS_PER_BOX = ROW / 32;              // 32-byte k-steps of Q·K^T
     static constexpr int SWIZZLE = ROW == 128 ? 1 : 2;          // wgmma layout: 128B / 64B
-    static constexpr int TILE = C::BK * HD * ES;                // one tensor's tile
+    static constexpr int TILE = BOXES * C::BK * ROW;            // one tensor's tile, pad included
     static constexpr int RAW = 0;
     static constexpr int SPLIT = RAW + C::STAGES * 2 * TILE;
-    static constexpr int SPLIT_TILE = C::BK * HD * 4;
+    static constexpr int SPLIT_TILE = TILE;
     static constexpr int CODES = SPLIT + (C::F32 ? 2 * 4 * SPLIT_TILE : 0);
     static constexpr int SPLIT_CODES = CODES + C::STAGES * C::BK * 8;
     static constexpr int BARS = SPLIT_CODES + (C::F32 ? 2 * C::BK * 8 : 0);
     static constexpr int BYTES = BARS + 2 * C::STAGES * 8 + 1024;  // + alignment slack
-    static_assert(HD % BOX == 0 && (HD * ES) % 64 == 0, "rows of 64 or 128 swizzled bytes");
+    static_assert(ROW == 64 || ROW == 128, "rows of 64 or 128 swizzled bytes");
+    static_assert(HD % (32 / ES) == 0, "head_dim in whole 32-byte k-steps");
     static_assert(!C::F32 || ROW == 128, "float32 rows are 128-byte boxes");
+    static_assert(!C::F32 || HD * 4 * C::BK <= SPLIT_TILE, "V^T fits a split tile");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -636,6 +330,9 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 #define ATTN_REGS32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
                     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
                     "%30, %31}"
+#define ATTN_REGS40 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                    "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
 
 // D (+)= A·B, m64nNk16, bf16 in, f32 accumulate; A from registers, B from
 // shared memory (TRANS: MN-major B); scale_d 0 overwrites D
@@ -659,6 +356,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[32], const uint32_t (&a)[4],
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
                    "n"(TRANS));
 }
+template <int TRANS>
+__device__ __forceinline__ void mma_bf16(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " ATTN_REGS40
+                 ", {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+                 : ATTN_D8(0), ATTN_D8(8), ATTN_D8(16), ATTN_D8(24), ATTN_D8(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+                   "n"(TRANS));
+}
 // D (+)= A·B, m64nNk8, TF32 in, f32 accumulate; both K-major
 __device__ __forceinline__ void mma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
@@ -676,10 +383,19 @@ __device__ __forceinline__ void mma_tf32(float (&d)[32], const uint32_t (&a)[4],
                  : ATTN_D8(0), ATTN_D8(8), ATTN_D8(16), ATTN_D8(24)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
+__device__ __forceinline__ void mma_tf32(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 " ATTN_REGS40
+                 ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+                 : ATTN_D8(0), ATTN_D8(8), ATTN_D8(16), ATTN_D8(24), ATTN_D8(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 // float32: split a raw K or V tile into the hi/lo tiles `wgmma` reads. Raw
 // rows are 128-byte boxes of 32 floats, 16-byte chunk c of row r at chunk
-// c ^ (r % 8) (TMA's 128-byte swizzle); K's split tiles keep that layout, V's
+// c ^ (r % 8) (TMA's 128-byte swizzle; only the real columns are split, a
+// last box's pad is left as it is); K's split tiles keep that layout, V's
 // are V^T: row d holds the keys of each 32-key block, 8-key group order
 // relabelled for P's fragment (key 2p at position p, key 2p + 1 at p + 4).
 // Consecutive threads take consecutive keys of one 4-float chunk: the reads
@@ -864,7 +580,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
         } else {
 #pragma unroll
             for (int kk = 0; kk < NP; ++kk) {
-                // keys 16kk..16kk+15: two 8-row groups of the MN-major V tile
+                // keys 16kk..16kk+15: two 8-row groups of the MN-major V tile;
+                // hd past a box's 128 bytes in the next box (leading offset)
                 const uint64_t bv = smem_desc(v + kk * 16 * L::ROW, BK * L::ROW, 8 * L::ROW,
                                               L::SWIZZLE);
                 mma_bf16<1>(o, pl[kk], bv, 1);
@@ -901,17 +618,19 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
         }
         return ct;
     };
-    // S = Q·K^T of tile it
+    // S = Q·K^T of tile it. k-step kk covers the 32 bytes of hd at box
+    // kk / STEPS_PER_BOX, bytes 32 (kk % STEPS_PER_BOX) of its rows
+    auto k_step = [&](int kk) {
+        return (kk / L::STEPS_PER_BOX) * BK * L::ROW + (kk % L::STEPS_PER_BOX) * 32;
+    };
     auto qk = [&](int it) {
         if constexpr (F32) {
             const uint32_t khi = smem_addr(split_of(it));
             const uint32_t klo = khi + L::SPLIT_TILE;
 #pragma unroll
             for (int kk = 0; kk < KS; ++kk) {
-                // hd 8kk..8kk+7: box kk / 4, bytes 32 (kk % 4) of its rows
-                const uint32_t off = (kk / 4) * BK * 128 + (kk % 4) * 32;
-                const uint64_t kh = smem_desc(khi + off, 16, 1024, L::SWIZZLE);
-                const uint64_t kl = smem_desc(klo + off, 16, 1024, L::SWIZZLE);
+                const uint64_t kh = smem_desc(khi + k_step(kk), 16, 1024, L::SWIZZLE);
+                const uint64_t kl = smem_desc(klo + k_step(kk), 16, 1024, L::SWIZZLE);
                 mma_tf32(s, ql[kk], kh, kk > 0);
                 mma_tf32(s, qa[kk], kl, 1);
                 mma_tf32(s, qa[kk], kh, 1);
@@ -920,7 +639,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
             const uint32_t kt = smem_addr(raw_of(it));
 #pragma unroll
             for (int kk = 0; kk < KS; ++kk)
-                mma_bf16<0>(s, qa[kk], smem_desc(kt + kk * 32, 16, 8 * L::ROW, L::SWIZZLE),
+                mma_bf16<0>(s, qa[kk], smem_desc(kt + k_step(kk), 16, 8 * L::ROW, L::SWIZZLE),
                             kk > 0);
         }
         wgmma_commit();
@@ -1098,20 +817,10 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 
 }  // namespace wgmma
 
-// head_dim 32 and 64 run the Hopper body, 80 the `mma.sync` body
-template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, const float* mask,
-           void* out, int B, int H, int N, float scale, cudaStream_t stream) {
-    if constexpr (HD <= 64)
-        return wgmma::launch<HD, T>(q, k, v, mask, out, B, H, N, scale, stream);
-    else
-        return mma_sync::launch<HD, T>(q, k, v, mask, out, B, H, N, scale, stream);
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q, k, v, out: contiguous
-// [B, H, N, head_dim], each base 16-byte aligned (TMA, cp.async); mask:
+// [B, H, N, head_dim], each base 16-byte aligned (TMA); mask:
 // contiguous float32 [B, N] (1.0 = PAD) or null. dtype: 0 = float32,
 // 1 = bfloat16. Returns cudaGetLastError() after the launch (0 = launched), -1
 // for a head_dim/dtype with no instantiation, -2 when the driver has no
@@ -1123,14 +832,17 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
     const float* m = static_cast<const float*>(mask);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (B <= 0 || H <= 0 || N <= 0) return -1;
+#define ATTN_LAUNCH(HD, T) \
+    if (head_dim == HD) return wgmma::launch<HD, T>(q, k, v, m, out, B, H, N, scale, s)
     if (dtype == 0) {
-        if (head_dim == 32) return launch<32, float>(q, k, v, m, out, B, H, N, scale, s);
-        if (head_dim == 64) return launch<64, float>(q, k, v, m, out, B, H, N, scale, s);
-        if (head_dim == 80) return launch<80, float>(q, k, v, m, out, B, H, N, scale, s);
+        ATTN_LAUNCH(32, float);
+        ATTN_LAUNCH(64, float);
+        ATTN_LAUNCH(80, float);
     } else if (dtype == 1) {
-        if (head_dim == 32) return launch<32, __nv_bfloat16>(q, k, v, m, out, B, H, N, scale, s);
-        if (head_dim == 64) return launch<64, __nv_bfloat16>(q, k, v, m, out, B, H, N, scale, s);
-        if (head_dim == 80) return launch<80, __nv_bfloat16>(q, k, v, m, out, B, H, N, scale, s);
+        ATTN_LAUNCH(32, __nv_bfloat16);
+        ATTN_LAUNCH(64, __nv_bfloat16);
+        ATTN_LAUNCH(80, __nv_bfloat16);
     }
+#undef ATTN_LAUNCH
     return -1;
 }

@@ -9,21 +9,23 @@ the softmax.
 * ``attention_reference`` — plain PyTorch, einsums in float32. The CPU path,
   the comparison in ``chip_smoke.py`` and ``attention_impl="torch"`` use it.
 * ``attention_fwd_cuda`` — launches the hand-written sm_90a kernel in
-  ``csrc/attention_fwd.cu``, a flash-attention forward on the tensor cores.
-  At head_dim 32 and 64 (``WGMMA_INSTANTIATIONS``) it is Hopper's own
-  design: warpgroup MMA (``wgmma``) fed by TMA tile loads that complete on
+  ``csrc/attention_fwd.cu``, a flash-attention forward on the tensor cores
+  in one design at every head_dim (32, 64, 80; ``WGMMA_INSTANTIATIONS``):
+  warpgroup MMA (``wgmma``) fed by TMA tile loads that complete on
   ``mbarrier``s, three TF32 passes in float32 (the K/V tiles split into hi
-  and lo in shared memory), P split into bf16 hi + lo in bfloat16; at
-  head_dim 80 (off the main path) the earlier ``mma.sync`` body. The kernel is
-  compiled with ``nvcc`` at first
+  and lo in shared memory), P split into bf16 hi + lo in bfloat16. The
+  kernel is compiled with ``nvcc`` at first
   use into ``mre_tpu_torch/_build/`` and bound through a plain C interface
   with ``ctypes``. One kernel serves both TPU bodies: head_dim 64 and 80
-  stand for ``_attention_kernel`` and count in ``LAUNCHES["attention_fwd"]``;
+  (M3AE-small's and M3AE-huge's encoders) stand for ``_attention_kernel``
+  and count in ``LAUNCHES["attention_fwd"]``;
   head_dim 32 (the M3AE decoder) stands for ``_attention_kernel_packed``,
   whose head packing is a TPU lane-layout device, and counts in
   ``LAUNCHES["attention_fwd_packed"]``. ``LAUNCHES_BY_DTYPE`` splits each
-  count by the inputs' dtype (``"attention_fwd.bfloat16"``, ...), so a
-  caller can tell which instantiation ran; ``reset_launches`` zeroes both.
+  count by the inputs' dtype (``"attention_fwd.bfloat16"``, ...) and
+  ``LAUNCHES_BY_HEAD_DIM`` by instantiation (``"hd80.float32"``, ...), so a
+  caller can tell which instantiation ran; ``reset_launches`` zeroes all
+  three.
 * ``FusedAttention`` — the ``jax.custom_vjp`` split of the JAX package: the
   forward runs the kernel on a CUDA tensor and the plain version on a CPU
   tensor; the backward recomputes through the plain version, as ``_bwd``
@@ -48,19 +50,20 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "attention_fwd.cu"
 BUILD_DIR = _PKG / "_build"
 HEAD_DIMS = (32, 64, 80)
-# the instantiations built on wgmma + TMA; the rest (head_dim 80) keep the
-# earlier mma.sync body. chip_smoke.py requires HGMMA and UTMALDG in each of these.
-WGMMA_INSTANTIATIONS = frozenset({(32, "float32"), (64, "float32"),
-                                  (32, "bfloat16"), (64, "bfloat16")})
+# the instantiations built on wgmma + TMA: all of them. chip_smoke.py
+# requires HGMMA and UTMALDG, and no HMMA, in each.
+WGMMA_INSTANTIATIONS = frozenset({(32, "float32"), (64, "float32"), (80, "float32"),
+                                  (32, "bfloat16"), (64, "bfloat16"), (80, "bfloat16")})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"attention_fwd": 0, "attention_fwd_packed": 0}
 LAUNCHES_BY_DTYPE = {f"{k}.{d}": 0 for k in LAUNCHES for d in ("float32", "bfloat16")}
+LAUNCHES_BY_HEAD_DIM = {f"hd{hd}.{d}": 0 for hd in HEAD_DIMS for d in ("float32", "bfloat16")}
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE):
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, LAUNCHES_BY_HEAD_DIM):
         for key in counts:
             counts[key] = 0
 
@@ -216,7 +219,7 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float, lib=None):
         raise ValueError(f"attention_fwd_cuda: B·H = {B * H} exceeds 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention_fwd_cuda: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):   # TMA and cp.async: 16-byte bases
+    if any(t.data_ptr() % 16 for t in (q, k, v)):   # TMA: 16-byte bases
         raise ValueError("attention_fwd_cuda: q, k, v must start 16-byte aligned")
     mask_ptr = None
     if padding_mask is not None:
@@ -235,8 +238,10 @@ def attention_fwd_cuda(q, k, v, padding_mask, scale: float, lib=None):
                                _DTYPES[q.dtype], float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd launch failed with CUDA error {rc}")
+    dtype = str(q.dtype).split(".")[-1]
     LAUNCHES[launch_key(hd)] += 1
-    LAUNCHES_BY_DTYPE[f"{launch_key(hd)}.{str(q.dtype).split('.')[-1]}"] += 1
+    LAUNCHES_BY_DTYPE[f"{launch_key(hd)}.{dtype}"] += 1
+    LAUNCHES_BY_HEAD_DIM[f"hd{hd}.{dtype}"] += 1
     return out
 
 

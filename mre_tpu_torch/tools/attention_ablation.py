@@ -8,7 +8,7 @@ in which one part of the Hopper body is compiled out: S = Q·K^T (``no_s``),
 O += P·V (``no_pv``), both (``no_mma``), the online softmax
 (``no_softmax``), float32's hi/lo split of the K and V tiles (``no_split``),
 or all of them (``no_compute``: the TMA ring, the Q loads and the O stores
-alone). Each build is timed with CUDA events at the tile sweep's three
+alone). Each build is timed with CUDA events at the tile sweep's four
 main-path shapes in float32 and bfloat16, twice in turns; the full build
 (``base``) is checked against the plain version first. An ablated build
 computes nothing meaningful: only its time is read, as the time of what is
@@ -52,8 +52,10 @@ extern "C" int occupancy(int head_dim, int dtype) {
         wgmma::attention_fwd_kernel<HD, T>, wgmma::Cfg<T>::THREADS, wgmma::Layout<HD, T>::BYTES)
     if (dtype == 0 && head_dim == 32) ATTN_OCC(32, float);
     if (dtype == 0 && head_dim == 64) ATTN_OCC(64, float);
+    if (dtype == 0 && head_dim == 80) ATTN_OCC(80, float);
     if (dtype == 1 && head_dim == 32) ATTN_OCC(32, __nv_bfloat16);
     if (dtype == 1 && head_dim == 64) ATTN_OCC(64, __nv_bfloat16);
+    if (dtype == 1 && head_dim == 80) ATTN_OCC(80, __nv_bfloat16);
     return n;
 }
 """
@@ -135,7 +137,7 @@ def main() -> int:
             results.append(rec)
     occupancy = {build: {f"hd{hd} {dt}": lib.occupancy(hd, code)
                          for (dt, code), hd in itertools.product(
-                             (("float32", 0), ("bfloat16", 1)), (32, 64))}
+                             (("float32", 0), ("bfloat16", 1)), attention.HEAD_DIMS)}
                  for build, lib in libs.items()}
     for build, occ in occupancy.items():
         print(f"[occupancy] {build}: {occ} blocks per SM", flush=True)

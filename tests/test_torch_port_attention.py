@@ -263,3 +263,18 @@ def test_tile_sweep_builds_every_tile():
     assert len(builds) == 2 * 2 * 2
     assert all(len(defines) == 3 for defines in builds.values())
     assert builds["bk64_wg2_st4"] == ("ATTN_BLOCK_K=64", "ATTN_WG=2", "ATTN_STAGES=4")
+    # every head_dim of the kernel is timed at a main-path shape, hd 80 at
+    # M3AE-huge's entity sweep (one batch of 512, 16 heads, N 321)
+    assert {shape[-1] for shape in tile_sweep.SHAPES.values()} == set(port.HEAD_DIMS)
+    assert tile_sweep.SHAPES["huge_entity"] == (512, 16, 321, 80)
+
+
+def test_one_design_at_every_head_dim():
+    """Every instantiation the kernel has (head_dim × dtype) is built on
+    wgmma + TMA: chip_smoke.py requires HGMMA and UTMALDG, and no HMMA, in
+    each of these, and fails on an instantiation outside them."""
+    assert port.HEAD_DIMS == (32, 64, 80)
+    assert port.WGMMA_INSTANTIATIONS == {(hd, dtype) for hd in port.HEAD_DIMS
+                                         for dtype in ("float32", "bfloat16")}
+    assert set(port.LAUNCHES_BY_HEAD_DIM) == {f"hd{hd}.{dtype}"
+                                              for hd, dtype in port.WGMMA_INSTANTIATIONS}

@@ -68,7 +68,7 @@ def test_kernel_many_waves(hd, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [17, 65, 321])
 def test_kernel_tiles_stay_inside_their_head(hd, dtype, N):
@@ -78,7 +78,9 @@ def test_kernel_tiles_stay_inside_their_head(hd, dtype, N):
     past-N code (NaN·0 − inf), and a leaked value row adds 0·NaN = NaN, so a
     leak into the even head before it poisons that head's output. A store
     of the even head's rows past N into the odd head after it would leave
-    finite values where every output of an odd head is NaN."""
+    finite values where every output of an odd head is NaN. At hd 80 the
+    last box of each row runs past hd: its pad columns are zero-filled,
+    never read from the next row."""
     q, k, v, pad = _case(2, 4, N, hd, dtype, "tail", seed=N + hd)
     k[:, 1::2] = float("nan")
     v[:, 1::2] = float("nan")
@@ -91,7 +93,7 @@ def test_kernel_tiles_stay_inside_their_head(hd, dtype, N):
     torch.testing.assert_close(out[:, 0::2].float(), ref[:, 0::2].float(), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_all_rows_in_one_partial_tile(hd, dtype):
     """N 40 < 64: every query row lies in one partial 64-row tile (rows past
@@ -106,7 +108,7 @@ def test_kernel_all_rows_in_one_partial_tile(hd, dtype):
 
 
 def test_wrapper_refuses_unaligned_base():
-    """TMA and cp.async take 16-byte aligned bases: a q that starts one
+    """TMA takes 16-byte aligned bases: a q that starts one
     element into its storage is refused, not copied."""
     q, k, v, pad = _case(2, 2, 9, 64, torch.float32, "tail", seed=3)
     shifted = torch.empty(q.numel() + 1, device=q.device)[1:].view(q.shape)
@@ -142,6 +144,22 @@ def test_autograd_forward_launches_kernel_backward_recomputes():
     for a, b in zip(leaves, ref_leaves):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_huge_head_dim_counts_by_instantiation(dtype):
+    """head_dim 80 (M3AE-huge's encoder) counts under ``attention_fwd`` and
+    under its own instantiation, nowhere else."""
+    q, k, v, pad = _case(2, 16, 50, 80, dtype, "tail", seed=4)
+    name = str(dtype).split(".")[-1]
+    before = (dict(port.LAUNCHES), dict(port.LAUNCHES_BY_DTYPE), dict(port.LAUNCHES_BY_HEAD_DIM))
+    port.attention_fwd_cuda(q, k, v, pad, 80 ** -0.5)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES == {**before[0], "attention_fwd": before[0]["attention_fwd"] + 1}
+    key = f"attention_fwd.{name}"
+    assert port.LAUNCHES_BY_DTYPE == {**before[1], key: before[1][key] + 1}
+    key = f"hd80.{name}"
+    assert port.LAUNCHES_BY_HEAD_DIM == {**before[2], key: before[2][key] + 1}
 
 
 def test_autograd_decoder_head_dim_counts_as_packed():
