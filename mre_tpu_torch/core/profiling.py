@@ -1,10 +1,12 @@
 """Profiling hooks (port of mre_tpu/core/profiling.py): the program's spans,
-its one counter, and the Chrome-trace exporter.
+its counters, and the Chrome-trace exporter.
 
 ``span(name)`` marks a layer boundary, and ``spanned(name)`` puts one
 around every call of the function it decorates; ``count(name, n)`` adds
-to a counter (the program has one: ``h2d.bytes``, the bytes handed to the
-host→device copies of ``FusionTrainer._put`` and ``ZSLModule._put``).
+to a counter. The program has three: ``h2d.bytes``, the bytes handed to
+the host→device copies of ``FusionTrainer._put`` and ``ZSLModule._put``;
+``zsl.generate.rows`` and ``zsl.generate.encoded``, the rows asked of
+``FusionTrainer.generate`` and the distinct ones its text pass encoded.
 
 * Tracing is off by default. A span then costs one check and returns a
   shared no-op context: no clock is read and no ``record_function`` is

@@ -115,11 +115,18 @@ class UnifiedModel(nn.Module):
     # -- conditional relation generator -------------------------------------
 
     def generate(self, description_tokens, des_padding_mask, noise,
-                 update_sn: bool = False):
+                 update_sn: bool = False, rows=None):
         """Generator head (unified.py:118-128). The text pass builds no
         graph; ``update_sn`` steps the power iteration of the three SN
-        layers (the ZSL G step)."""
+        layers (the ZSL G step). By default each noise row has its own
+        description row. ``rows`` (a device index, one per noise row)
+        instead maps the noise rows onto the given descriptions; one
+        description with no ``rows`` serves every noise row."""
         rel_emb = self._text_cls(description_tokens, des_padding_mask)
+        if rows is not None:
+            rel_emb = rel_emb.index_select(0, rows)
+        elif len(rel_emb) == 1 < len(noise):
+            rel_emb = rel_emb.expand(len(noise), -1)
         x = self.generate_fc_layer(torch.cat([noise, rel_emb], dim=1), update_stats=update_sn)
         x = self.des_rel_map_layer1(x, update_stats=update_sn)
         x = self.des_rel_map_layer2(x, update_stats=update_sn)

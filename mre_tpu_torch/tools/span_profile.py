@@ -22,10 +22,13 @@ The JSON it writes (and prints) holds, per unit of the profiled part:
 
 * ``readings``: the named numbers a later change starts from —
   ``wait_batch_ms``, ``put_ms``, ``h2d_mb``, ``draw_ms``,
-  ``step_idle_ms`` and ``host_syncs`` for training; ``put_ms`` for the
-  serving round and the GAN epoch;
+  ``step_idle_ms`` and ``host_syncs`` for training; ``put_ms`` and
+  ``encoded_share`` for the serving round and the GAN epoch;
 * ``host``: ``snapshot()`` of the profiled part per (span, enclosing span,
-  window thread or not): ms and count per unit, and ``h2d.bytes``;
+  window thread or not): ms and count per unit, ``h2d.bytes`` as MB per
+  unit, and ``encoded_share``, the rows ``FusionTrainer.generate``'s text
+  pass encoded over the rows asked of it (``zsl.generate.encoded`` /
+  ``zsl.generate.rows``; absent where nothing called it);
 * ``device``: from the trace, on the window thread — each idle gap named
   by the innermost span there, device idle and host time inside each
   span, the CUDA runtime synchronisations starting inside each span and
@@ -458,6 +461,9 @@ def host_readings(snap: dict | None, units: int, thread) -> dict:
         row["ms"] += ns / 1e6 / units
         row["count"] += n / units
     out["h2d_mb"] = snap["counts"].get("h2d.bytes", 0) / 1e6 / units
+    rows = snap["counts"].get("zsl.generate.rows", 0)
+    if rows:                    # the description pass's engagement
+        out["encoded_share"] = snap["counts"].get("zsl.generate.encoded", 0) / rows
     out["threads"] = len({t for (_, _, t) in snap["spans"]})
     return out
 
@@ -473,6 +479,8 @@ def readings(job: str, out: dict) -> dict:
                    if k.split("<")[0] == name)
 
     got = {"put_ms": ms("fusion.put") + ms("zsl.put")}
+    if "encoded_share" in host:
+        got["encoded_share"] = host["encoded_share"]
     if job == "train":
         got.update(wait_batch_ms=ms("fusion.wait_batch", "main"),
                    put_ms=ms("fusion.put", "other"), h2d_mb=host["h2d_mb"],

@@ -552,9 +552,22 @@ class FusionTrainer:
                  update_sn: bool = False) -> torch.Tensor:
         """Generator head: relation descriptions ⊕ noise → embeddings. The
         head builds a graph unless the caller is under ``no_grad`` (the ZSL
-        G step trains it); ``update_sn`` steps its three SN layers."""
+        G step trains it); ``update_sn`` steps its three SN layers.
+
+        The frozen text pass gives rows of one relation one vector, so it
+        encodes each distinct id once (a GAN batch holds two relations over
+        hundreds of rows, an evaluation one relation) and the head runs on
+        every row."""
         rel_ids = np.asarray(rel_ids)
         with span("zsl.generate"):
-            return self.model.generate(self._put(self.store.rel_ids[rel_ids]),
-                                       self._put(self.store.rel_mask[rel_ids]),
-                                       noise.to(self.device), update_sn=update_sn)
+            ids, inv = np.unique(rel_ids, return_inverse=True)
+            if len(ids) == len(rel_ids):      # all distinct: one row each, as given
+                ids = rel_ids
+            count("zsl.generate.rows", len(rel_ids))
+            count("zsl.generate.encoded", len(ids))
+            tokens = self._put(self.store.rel_ids[ids])
+            mask = self._put(self.store.rel_mask[ids])
+            # one description needs no index: the model expands it to every row
+            rows = self._put(inv.reshape(-1), torch.int64) if 1 < len(ids) < len(rel_ids) else None
+            return self.model.generate(tokens, mask, noise.to(self.device),
+                                       update_sn=update_sn, rows=rows)

@@ -65,11 +65,15 @@ def test_each_job_reads_its_spans_on_the_cpu(job, tmp_path):
         assert got["step_idle_ms"] == pytest.approx(dev["host_ms"]["fusion.step"])
     elif job == "serve":
         assert host["main"]["zsl.evaluate<None"]["count"] == 1.0
+        assert got["encoded_share"] == host["encoded_share"] == 1 / TINY["test_sample"]
         assert {"fusion.ent_sweep", "zsl.pair_tables", "rgcn.sweep"} <= set(dev["spans"])
     else:
         assert host["main"]["zsl.d_step<None"]["count"] == 1.0
         assert host["main"]["zsl.gan_batch<None"]["count"] == 2.0
         assert dev["spans"]["zsl.generate"] == 2.0
+        zc = traffic["zsl"]     # at most one encoded row per relation of a step
+        assert 0 < got["encoded_share"] <= zc["gan_batch_rela"] / (zc["gan_batch_rela"]
+                                                                   * zc["G_batch_size"])
 
 
 def _write(tmp_path, name, obj) -> str:

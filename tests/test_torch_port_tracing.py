@@ -1,12 +1,14 @@
-"""The program's spans and its copy counter (``core/profiling.py``), on the
+"""The program's spans and its counters (``core/profiling.py``), on the
 CPU at a tiny size.
 
 Off (the default): a training epoch, a serving round and a GAN epoch
 record nothing and enter no ``record_function``. On (between ``enable()``
 and ``disable()``): every span of the training thread, the producer
 thread, the serving round and the GAN steps sits under the parent that
-``PERF.md`` names, on its thread, once per unit where it is per unit, and
-``h2d.bytes`` is the bytes handed to both ``_put``s. Under a profiler
+``PERF.md`` names, on its thread, once per unit where it is per unit;
+``h2d.bytes`` is the bytes handed to both ``_put``s, and
+``zsl.generate.rows`` / ``zsl.generate.encoded`` the rows asked of
+``FusionTrainer.generate`` and the distinct ones it encoded. Under a profiler
 session the training thread's spans and ``zsl.generate`` are annotations
 of its trace, and ``trace`` writes the producer thread's spans too.
 """
@@ -115,6 +117,19 @@ def _put_bytes(monkeypatch, *owners) -> list:
     return got
 
 
+def _generate_ids(monkeypatch, trainer) -> list:
+    """Wrap ``trainer.generate``; the list gets the ids of every call."""
+    got: list = []
+    inner = trainer.generate
+
+    def generate(rel_ids, *args, **kw):
+        got.append(np.asarray(rel_ids).copy())
+        return inner(rel_ids, *args, **kw)
+
+    monkeypatch.setattr(trainer, "generate", generate)
+    return got
+
+
 def _by_name(snap: dict) -> dict:
     """name → {(parent, thread id): count}."""
     out: dict = {}
@@ -166,6 +181,7 @@ def test_training_spans_nest_per_step_on_their_threads(pipeline, monkeypatch):
 def test_serving_round_spans_and_copies(pipeline, monkeypatch):
     trainer, zsl = pipeline
     puts = _put_bytes(monkeypatch, trainer, zsl)
+    calls = _generate_ids(monkeypatch, trainer)
     profiling.enable()
     _serve(trainer, zsl)
     profiling.disable()
@@ -180,12 +196,17 @@ def test_serving_round_spans_and_copies(pipeline, monkeypatch):
     assert set(spans["zsl.put"]) == {("zsl.update_embed", main), ("zsl.pair_tables", main)}
     assert ("zsl.generate", main) in spans["fusion.put"]
     assert {t for v in spans.values() for _, t in v} == {main}
-    assert snap["counts"] == {"h2d.bytes": sum(puts)} and sum(puts) > 0
+    # evaluate asks for test_sample rows of one unseen relation per call
+    assert calls and all(len(ids) == ZSL["test_sample"] and len(set(ids)) == 1 for ids in calls)
+    assert snap["counts"] == {"h2d.bytes": sum(puts),
+                              "zsl.generate.rows": ZSL["test_sample"] * len(calls),
+                              "zsl.generate.encoded": len(calls)} and sum(puts) > 0
 
 
 def test_gan_epoch_spans_and_copies(pipeline, monkeypatch):
     trainer, zsl = pipeline
     puts = _put_bytes(monkeypatch, trainer, zsl)
+    calls = _generate_ids(monkeypatch, trainer)
     profiling.enable()
     epochs = _gan(trainer, zsl)
     profiling.disable()
@@ -198,8 +219,17 @@ def test_gan_epoch_spans_and_copies(pipeline, monkeypatch):
     assert spans["zsl.g_step"] == {(None, main): epochs}
     assert spans["zsl.gan_batch"] == {(None, main): 2 * epochs}
     assert spans["zsl.generate"] == {("zsl.d_step", main): epochs, ("zsl.g_step", main): epochs}
-    assert spans["fusion.put"] == {("zsl.generate", main): 4 * epochs}   # ids and mask per call
-    assert snap["counts"] == {"h2d.bytes": sum(puts)} and sum(puts) > 0
+    # a D and a G step per epoch, each of Q rows; each call encodes its
+    # distinct ids, and puts ids and mask, and the row index where it
+    # holds more than one relation
+    Q = ZSL["gan_batch_rela"] * ZSL["G_batch_size"]
+    assert [len(ids) for ids in calls] == [Q] * 2 * epochs
+    distinct = [len(np.unique(ids)) for ids in calls]
+    assert all(1 <= d <= ZSL["gan_batch_rela"] for d in distinct)
+    assert spans["fusion.put"] == {("zsl.generate", main):
+                                   sum(2 + (d > 1) for d in distinct)}
+    assert snap["counts"] == {"h2d.bytes": sum(puts), "zsl.generate.rows": 2 * epochs * Q,
+                              "zsl.generate.encoded": sum(distinct)} and sum(puts) > 0
 
 
 def _annotations(prof) -> dict:
