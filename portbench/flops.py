@@ -58,29 +58,67 @@ def train_step(cfg: dict, fusion: dict) -> float:
     return 3.0 * trained + encoder(edges, 1 + D, d, cfg["depth"])
 
 
+def generator_head(cfg: dict, rows: int) -> float:
+    """The generator head's three layers on ``rows`` rows: the description
+    vector and the noise to the encoder's width, then to the GCN width
+    twice."""
+    d, g = cfg["emb_dim"], cfg["gcn_dim"]
+    return linear(rows, d + cfg["noise_dim"], d) + linear(rows, d, g) + linear(rows, g, g)
+
+
+def extractor(cfg: dict, rows: int) -> float:
+    """One Extractor pass whose query and support are both ``rows`` entity
+    pairs: four neighbour encoders over ``max_neighbor`` neighbours each,
+    two entity encoders, two reshape layers, two support encoders (g → 2g
+    → g) and the scores against the support mean."""
+    g, h, k = cfg["gcn_dim"], cfg["gcn_dim"] // 2, cfg["max_neighbor"]
+    return (4 * linear(rows * k, g, h) + 2 * 2 * linear(rows, g, h) + 2 * linear(rows, 4 * h, g)
+            + 2 * (linear(rows, g, 2 * g) + linear(rows, 2 * g, g)) + linear(rows, g, 1))
+
+
+def critic(cfg: dict, rows: int) -> float:
+    """One critic pass: its middle layer on the rows and on the seen
+    relations' centroids, the real/fake logit and the class scores."""
+    g, labels = cfg["gcn_dim"], cfg["n_rel"] - cfg["n_unseen"]
+    return (linear(rows, g, g) + linear(labels, g, g) + linear(rows, g, 1)
+            + linear(rows, g, labels))
+
+
 def serve_round(cfg: dict, n_queries: int, n_candidates: int) -> float:
     """One serving round: the entity sweep (every entity has an image or
     its noise image), the RGCN over all entities, the relation sweep, each
-    unseen relation's generation, and the Extractor's support encoder over
-    every ranked pair. Rows count as the model has them: the rows that pad
-    a sweep's last batch are not model work."""
+    unseen relation's generation (its one description through the text
+    pass, the head on ``test_sample`` rows), and the Extractor's support
+    encoder over every ranked pair. Rows count as the model has them: the
+    rows that pad a sweep's last batch are not model work."""
     L, T, D = image_tokens(cfg), cfg["text_tokens"], cfg["description_tokens"]
     d, p3, g = cfg["emb_dim"], cfg["patch_size"] ** 2 * 3, cfg["gcn_dim"]
     ents, rels = cfg["n_ent"], cfg["n_rel"]
     return (encoder(ents, 1 + L + T, d, cfg["depth"]) + linear(ents * L, p3, d)
             + rgcn(cfg["n_ent"], d, g, cfg["num_bases"])
             + encoder(rels, 1 + D, d, cfg["depth"])
-            + cfg["n_unseen"] * encoder(cfg["test_sample"], 1 + D, d, cfg["depth"])
+            + cfg["n_unseen"] * (encoder(1, 1 + D, d, cfg["depth"])
+                                 + generator_head(cfg, cfg["test_sample"]))
             + n_queries * n_candidates * 2 * linear(1, g, 2 * g))
 
 
 def gan_epoch(cfg: dict, zsl: dict) -> float:
-    """One D step and one G step: each generates a batch of
-    ``G_batch_size · gan_batch_rela`` rows through the description pass
-    (no gradient); the heads, the Extractor and the critic are small and
-    not counted."""
-    rows = zsl["G_batch_size"] * zsl["gan_batch_rela"]
-    return 2.0 * encoder(rows, 1 + cfg["description_tokens"], cfg["emb_dim"], cfg["depth"])
+    """One D step and one G step on ``G_batch_size · gan_batch_rela`` rows.
+    Each encodes its ``gan_batch_rela`` distinct descriptions once (no
+    gradient) and runs the generator head on every row. The D step: the
+    head and two Extractor passes without a gradient; the critic trained
+    on the real, generated and negative rows, and on the interpolates
+    twice over (their input gradient, itself differentiated). The G step:
+    one Extractor and one critic pass without a gradient, the head
+    trained, and the critic on the generated rows with their input
+    gradient. Spectral norms' power steps are not counted."""
+    rela = zsl["gan_batch_rela"]
+    rows = zsl["G_batch_size"] * rela
+    text = encoder(rela, 1 + cfg["description_tokens"], cfg["emb_dim"], cfg["depth"])
+    head, ext, crit = generator_head(cfg, rows), extractor(cfg, rows), critic(cfg, rows)
+    d_step = text + head + 2 * ext + 3 * 3 * crit + 2 * 3 * crit
+    g_step = text + 3 * head + ext + crit + 2 * crit
+    return d_step + g_step
 
 
 def attention_bound_s(b: int, h: int, n: int, hd: int, dtype: str, masked: bool) -> float:

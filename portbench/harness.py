@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import os
 import sys
 import time
 
@@ -111,10 +112,34 @@ class Window:
     """What a job's measured window hands back."""
     units: int                      # steps, rounds or epochs completed
     seconds: float                  # host time of the whole window
-    unit_s: list                    # each unit's time (may be empty)
+    unit_s: list                    # each unit's time, or each block's per unit (may be empty)
     setup_s: float
     flops_per_unit: float           # model FLOPs of one unit (flops.py)
     peak: int = 0                   # device memory peak before the check, bytes
+    notes: dict = dataclasses.field(default_factory=dict)  # the job's notes on it (host_load)
+
+
+def host_mark() -> tuple:
+    """The host clock, this process's CPU time and involuntary context
+    switches, and the load average, now."""
+    import resource
+
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return time.perf_counter(), r.ru_utime + r.ru_stime, r.ru_nivcsw, os.getloadavg()[0]
+
+
+def host_load(start: tuple, end: tuple) -> dict:
+    """How busy the host was between two ``host_mark``s: the process's CPU
+    time over the wall time (all its threads), its involuntary context
+    switches, the one-minute load average at both ends, and the CPUs and
+    torch threads the process may use. It describes the run; no metric
+    reads it."""
+    import torch
+
+    wall = end[0] - start[0]
+    return dict(cpu_over_wall=(end[1] - start[1]) / wall if wall > 0 else None,
+                nivcsw=end[2] - start[2], loadavg=[start[3], end[3]],
+                cpus=len(os.sched_getaffinity(0)), torch_threads=torch.get_num_threads())
 
 
 def with_tf32(enabled: bool):

@@ -9,19 +9,25 @@ from seeded entity and relation embeddings, computes the centroids and
 runs a first ``train_gan`` call of ``checked_epochs`` epochs, recording
 what the check needs (each step's batch, noise, α and dropout masks, its
 loss, the first D and G moments, the D and G leaves after the call). The
-window is one ``train_gan`` call of as many epochs as fill ``--seconds``
-at the set-up's last epoch time.
+window is one ``train_gan`` call timed in whole log windows: blocks of
+``loss_every`` epochs, each ended by the loop's one sync (the log's
+``.item()``). The host clock is read at each block's end, where the next
+batch is drawn, and the window ends at the first block's end past
+``--seconds``; the call's epoch count, four times what ``--seconds`` holds
+at the median checked epoch's time, is not reached. The harness adds no
+sync inside the window.
 """
 
 from __future__ import annotations
 
 import math
+import statistics
 import time
 
 import torch
 
 from portbench import flops, weights
-from portbench.harness import Window, capture
+from portbench.harness import Window, capture, host_load, host_mark
 from portbench.jobs import common
 from portbench.reference import compare
 from portbench.reference import data as rdata
@@ -93,12 +99,14 @@ def run(ctx):
 
     undo += [after("D", "opt_D", d_names), after("G", "opt_G", g_names)]
     n_check = tr["checked_epochs"]
+    ends.append(time.perf_counter())
     zsl.train_gan(trainer, train_times=n_check, skip_pretrain=True, skip_centroids=True)
     state["params"] = {d_names[id(p)]: p.detach().clone() for p in zsl.discriminator.parameters()}
     state["params"].update({g_names[id(p)]: p.detach().clone() for p in zsl.g_params})
     for u in undo:
         u()
-    epochs = max(n_check, math.ceil(ctx.seconds / (ends[-1] - ends[-2])))
+    block = zsl.cfg.loss_every
+    epoch_s = statistics.median(b - a for a, b in zip(ends, ends[1:]))
 
     # -- the window -----------------------------------------------------------------
     prof = ctx.profile
@@ -120,12 +128,27 @@ def run(ctx):
                 return out
 
             zsl.__dict__[f"{kind.lower()}_step"] = counted
-        epochs = max(epochs, first + k_prof)
+    # an epoch count the window does not reach: it ends at a block's end
+    cap = block * math.ceil(4 * ctx.seconds / epoch_s / block)
+    stamps: list = []
+    stamp_blocks(zsl, block, stamps, lambda now: now - stamps[0][0] >= ctx.seconds
+                 and (prof is None or prof.done))
     setup_s = time.perf_counter() - ctx.t_start
-    t0 = time.perf_counter()
-    zsl.train_gan(trainer, train_times=epochs, skip_pretrain=True, skip_centroids=True)
-    ctx.sync()
-    seconds = time.perf_counter() - t0
+    mark = host_mark()
+    stamps.append((time.perf_counter(), time.process_time()))
+    try:
+        zsl.train_gan(trainer, train_times=cap, skip_pretrain=True, skip_centroids=True)
+        ctx.sync()
+        stamps.append((time.perf_counter(), time.process_time()))
+    except _Stop:
+        pass
+    host = host_load(mark, host_mark())
+    epochs, seconds = block * (len(stamps) - 1), stamps[-1][0] - stamps[0][0]
+    laps = list(zip(stamps, stamps[1:]))
+    block_s = [(b[0] - a[0]) / block for a, b in laps]
+    host.update(checked_epoch_ms=epoch_s * 1e3, epoch_ms_window=seconds / epochs * 1e3,
+                epoch_ms_block_median=statistics.median(block_s) * 1e3,
+                block_cpu_over_wall=[(b[1] - a[1]) / (b[0] - a[0]) for a, b in laps])
     peak = common.peak_bytes(ctx)
     del trainer, zsl, store
     common.free(ctx)
@@ -137,8 +160,33 @@ def run(ctx):
         steps.append(dict(kind=kind, batch=batch, noise=noise, alpha=alpha, masks=mk))
     rec = dict(path=path, p0=p0, q0=q0, c0=c0, ent=ent.cpu().numpy(), rel=rel.cpu().numpy(),
                steps=steps, losses=[float(x) for _, x in kinds], state=state)
-    return Window(units=epochs, seconds=seconds, unit_s=[], setup_s=setup_s,
-                  flops_per_unit=flops.gan_epoch(c, zc), peak=peak), rec
+    return Window(units=epochs, seconds=seconds, unit_s=block_s, setup_s=setup_s,
+                  flops_per_unit=flops.gan_epoch(c, zc), peak=peak, notes=host), rec
+
+
+class _Stop(Exception):
+    pass
+
+
+def stamp_blocks(zsl, block: int, stamps: list, stop=lambda now: False):
+    """Append the host clock and the process's CPU time to ``stamps`` when
+    ``train_gan`` draws the first batch after each block of ``block``
+    epochs, just after the loop's log sync, and end the call there once
+    ``stop(clock)`` holds."""
+    draw = zsl._padded_gan_batch
+    per_block = block * (zsl.cfg.D_epoch + zsl.cfg.G_epoch)
+    calls = 0
+
+    def stamped(*a, **k):
+        nonlocal calls
+        if calls and calls % per_block == 0:
+            stamps.append((time.perf_counter(), time.process_time()))
+            if stop(stamps[-1][0]):
+                raise _Stop
+        calls += 1
+        return draw(*a, **k)
+
+    zsl._padded_gan_batch = stamped
 
 
 def numbers(ctx, rec: dict) -> tuple[dict, dict]:

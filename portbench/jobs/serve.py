@@ -17,7 +17,7 @@ import contextlib
 import time
 
 from portbench import flops
-from portbench.harness import Window, capture
+from portbench.harness import Window, capture, host_load, host_mark
 from portbench.jobs import common
 from portbench.reference import compare
 from portbench.reference import data as rdata
@@ -55,6 +55,7 @@ def run(ctx):
     rounds, times = [], []
     prof = ctx.profile
     setup_s = time.perf_counter() - ctx.t_start
+    mark = host_mark()
     t0 = time.perf_counter()
     while True:
         k = len(rounds) + 1
@@ -69,6 +70,7 @@ def run(ctx):
         if time.perf_counter() - t0 >= ctx.seconds and (prof is None or prof.done):
             break
     seconds = time.perf_counter() - t0
+    host = host_load(mark, host_mark())
     peak = common.peak_bytes(ctx)
     per_round = len(generated) // len(rounds)
     gen = [generated[i * per_round:(i + 1) * per_round] for i in range(len(rounds))]
@@ -77,7 +79,7 @@ def run(ctx):
     rec = dict(path=path, p0=p0, q0=q0, noises=noises, rounds=rounds, generated=gen)
     return Window(units=len(rounds), seconds=seconds, unit_s=times, setup_s=setup_s,
                   flops_per_unit=flops.serve_round(ctx.config, n_queries, ctx.config["n_candidates"]),
-                  peak=peak), rec
+                  peak=peak, notes=host), rec
 
 
 def numbers(ctx, rec: dict) -> tuple[dict, dict]:

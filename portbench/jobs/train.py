@@ -18,7 +18,7 @@ import time
 import numpy as np
 
 from portbench import flops
-from portbench.harness import Window, capture
+from portbench.harness import Window, capture, host_load, host_mark
 from portbench.jobs import common
 from portbench.reference import compare
 from portbench.reference import data as rdata
@@ -69,6 +69,7 @@ def run(ctx):
     prof = ctx.profile
     first, k_prof = tr["profile_after"], tr["profiled_steps"]
     setup_s = time.perf_counter() - ctx.t_start
+    mark = host_mark()
     t0 = time.perf_counter()
     steps = 0
 
@@ -89,6 +90,7 @@ def run(ctx):
             break
     ctx.sync()
     seconds = time.perf_counter() - t0
+    host = host_load(mark, host_mark())
     peak = common.peak_bytes(ctx)
     spe = trainer.steps_per_epoch
     del trainer, store
@@ -97,7 +99,7 @@ def run(ctx):
     rec = dict(path=path, p0=p0, graphs=graphs[:n_check], draws=draws[:n_check],
                losses=[float(x) for x in losses], state=state, steps_per_epoch=spe)
     return Window(units=steps, seconds=seconds, unit_s=[], setup_s=setup_s,
-                  flops_per_unit=flops.train_step(ctx.config, fus), peak=peak), rec
+                  flops_per_unit=flops.train_step(ctx.config, fus), peak=peak, notes=host), rec
 
 
 def numbers(ctx, rec: dict) -> tuple[dict, dict]:

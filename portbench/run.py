@@ -106,7 +106,7 @@ def measure(cell: str, seed: int, seconds: float, trace: bool, device: str = "cu
         out["device"].update(busy_s=run.summary.busy_s, window_s=run.summary.window_s)
         out["breakdown"] = ctx.profile.breakdown()
     u = sorted(window.unit_s)
-    out["notes"] = dict(notes, unit_s=window.unit_s if len(u) <= 24 else
+    out["notes"] = dict(notes, **window.notes, unit_s=window.unit_s if len(u) <= 24 else
                         [u[0], u[len(u) // 2], u[-1]])
     out["checks"] = {k: {"value": v, "limit": lim} for k, v, lim in checks}
     return out

@@ -18,7 +18,8 @@ TINY = {
                                 profiled_steps=2),
     "serve-rounds": dict(entity_batch=16, relation_batch=4, query_chunk=8, profile_after=1,
                          reference_block=16),
-    "gan-epochs": dict(zsl=dict(G_batch_size=8), profile_after=2, profiled_epochs=2),
+    "gan-epochs": dict(zsl=dict(G_batch_size=8, loss_every=4), profile_after=2,
+                       profiled_epochs=2),
 }
 
 

@@ -39,8 +39,39 @@ def test_encoder_flops_by_hand():
 def test_gan_epoch_is_two_description_passes():
     cfg = helpers.load(os.path.join(PKG, "configs", "m3ae-small.json"))
     zc = helpers.load(os.path.join(PKG, "traffic", "gan-epochs.json"))["zsl"]
-    # two B512·N321 passes of the depth-12, 384-wide encoder: ~15.9 TFLOP
-    assert flops.gan_epoch(cfg, zc) == pytest.approx(1.59e13, rel=0.01)
+    # two B2·N321 passes of the depth-12, 384-wide encoder (62.1 GFLOP), three
+    # Extractor passes over 512 pairs of 50 neighbours (14.0), the head on 512
+    # rows four times over and the critic: ~78.1 GFLOP
+    assert flops.encoder(2, 321, 384, 12) == pytest.approx(3.11e10, rel=0.01)
+    assert flops.gan_epoch(cfg, zc) == pytest.approx(7.81e10, rel=0.01)
+
+
+SMALL = dict(emb_dim=8, depth=1, description_tokens=3, gcn_dim=4, noise_dim=2, max_neighbor=5,
+             n_rel=5, n_unseen=2, test_sample=7)
+
+
+def test_gan_epoch_flops_by_formula():
+    d, g, h, k, labels, rela, rows = 8, 4, 2, 5, 3, 2, 6
+    text = 2 * rela * 4 * d * d * 12 + 4 * rela * 4 * 4 * d          # one block over N 1 + 3
+    head = 2 * rows * (d + 2) * d + 2 * rows * d * g + 2 * rows * g * g
+    ext = (4 * 2 * rows * k * g * h + 4 * 2 * rows * g * h + 2 * 2 * rows * 4 * h * g
+           + 2 * (2 * rows * g * 2 * g + 2 * rows * 2 * g * g) + 2 * rows * g)
+    crit = 2 * rows * g * g + 2 * labels * g * g + 2 * rows * g + 2 * rows * g * labels
+    d_step = text + head + 2 * ext + 3 * 3 * crit + 2 * 3 * crit
+    g_step = text + 3 * head + ext + crit + 2 * crit
+    assert flops.gan_epoch(SMALL, dict(G_batch_size=3, gan_batch_rela=rela)) == d_step + g_step
+
+
+def test_serving_encodes_one_description_per_unseen_relation():
+    cfg = dict(SMALL, image_size=8, patch_size=4, text_tokens=2, num_bases=2, n_ent=9)
+    more = dict(cfg, test_sample=cfg["test_sample"] + 10)
+    # the text pass does not grow with the generated rows; the head does
+    head_rows = 2 * 10 * ((8 + 2) * 8 + 8 * 4 + 4 * 4)
+    assert (flops.serve_round(more, 3, 4) - flops.serve_round(cfg, 3, 4)
+            == cfg["n_unseen"] * head_rows)
+    one = flops.encoder(1, 1 + 3, 8, 1) + flops.generator_head(cfg, 7)
+    no_unseen = flops.serve_round(dict(cfg, n_unseen=0), 3, 4)
+    assert flops.serve_round(cfg, 3, 4) - no_unseen == 2 * one
 
 
 def test_attention_bound_picks_the_larger_term():

@@ -5,7 +5,11 @@ All of a module's tensors come from one ``torch.Generator`` on the run's
 device, seeded from ``--seed``, in one ``randn`` call over their total
 size, then scaled per tensor: matrices N(0, 1/fan_in), the text embedding
 N(0, 1), learned tokens N(0, 0.02²), biases N(0, 0.02²), LayerNorm scales
-1 + N(0, 0.05²), spectral-norm vectors unit random vectors. The program
+1 + N(0, 0.05²). Of a spectral norm's vectors, ``u`` is a unit random
+vector and ``v`` = l2(Wᵀu), the pair that the program's initialisation
+and every power step leave: with ``v`` drawn apart from ``u``, σ = uᵀWv
+would be a sum that cancels to near 0 on some seeds and scales the layer's
+output and its round-off by a thousand or more. The program
 receives them through ``load_state_dict``; the reference reads the same
 dict, which the program's training does not touch.
 """
@@ -48,6 +52,11 @@ def draw(shapes: dict, gen: torch.Generator, device) -> dict:
             base, scale = _scale(name, tuple(shape))
             x = x * scale + base
         out[name] = x
+    for name in [n for n in out if n.endswith(".v")]:
+        base = name[:-len(".v")]
+        if f"{base}.u" in out and f"{base}.weight" in out:
+            v = out[f"{base}.weight"].T @ out[f"{base}.u"]
+            out[name] = v / torch.linalg.norm(v)
     return out
 
 
