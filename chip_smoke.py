@@ -10,8 +10,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
    (cuobjdump) of HMMA (``mma.sync``), HGMMA (``wgmma``) and UTMALDG (TMA
    tile loads) are printed. It fails unless the instantiations are
    ``attention.WGMMA_INSTANTIATIONS`` (head_dim 32, 64 and 80 × float32 and
-   bfloat16), on a spill at any of them, and on one without HGMMA or
-   UTMALDG or with HMMA;
+   bfloat16) and ``attention.CAUSAL_INSTANTIATIONS`` (the LFM2 encoder's
+   causal head_dim 64 with 4 query heads per KV head, both types), on a
+   spill at any of them, and on one without HGMMA or UTMALDG or with HMMA;
 2. kernels vs plain — each kernel's wrapper on the card at the shapes of the
    serving and training paths, held against its plain PyTorch version
    (float32 atol 1e-4, bfloat16 atol 2e-2), with CUDA-event times of the
@@ -24,7 +25,15 @@ Phases (each raises, and the script exits non-zero, on any failure):
    (phase 10) are held too: N 17 and 33 at head_dim 64, N 33 at 32; and
    phase 12's: the main loop's step at image 96 (N 18 masked, 53 unmasked,
    17 edge descriptions at head_dim 64; the decoder's N 53 at 32) and
-   entry()'s N 25;
+   entry()'s N 25. The causal instantiations (``grouped_attention``, 32
+   query heads over 8 KV heads of 64) at phase 3c's shapes: the entity
+   sweep's B512·N321, the relation sweep's B64 and a generator pass's B1,
+   and a ragged N 37 with PAD at its tail, held against
+   ``attention_reference(..., causal=True)`` under the same tolerances,
+   timed beside the causal bound (the products over the n(n+1)/2 causal
+   pairs, or Q and O at 32 heads and K and V at 8 once) and the library's
+   causal GQA call (``scaled_dot_product_attention(..., is_causal=True,
+   enable_gqa=True)``, timed only);
 3. serving slice — a synthetic ZSL dataset (2048 entities, 32 relations, 4
    unseen) through the M3AE-small model (emb 384, depth 12, 6 heads of 64,
    image 256 / patch 16, 64 text and 320 description tokens; GCN dim 200,
@@ -46,6 +55,16 @@ Phases (each raises, and the script exits non-zero, on any failure):
    another instantiation, none on the plain run); then bfloat16 under
    phase 7's gates, against this phase's float32 embeddings (128 bf16
    hd-80 launches); one kernel round of each type under torch.profiler;
+3c. LFM2-8B-A1B — the same round with ``--model_type lfm2-8b-a1b`` as the
+   encoder (``models/lfm2.py``) at its published widths (2048; 32 query
+   heads over 8 KV heads of 64; SwiGLU 7168; 32 experts of 1792, top-4;
+   vocabulary 65,536), its depth cut to the benchmark's 10 layers (2 of
+   them attention), on phase 3b's fixture sizes, float32. The launch
+   counts are reset just before the round, which must launch exactly
+   attention layers × (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen) = 8 causal
+   hd-64 kernels (2 per entity batch, 2 per relation batch, 2 per unseen
+   generator pass) and no other; finite embeddings of the model's shapes,
+   a finite MRR; seconds per stage;
 4. training — one ``train_epoch`` of the fusion step at the full width of
    M3AE-small, its depth cut to 4 / 4 (``tiny4``: encoder 384 wide, 6 heads
    of 64; decoder 512 wide, 16 heads of 32; phase 12 runs depth 12 / 8;
@@ -266,8 +285,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    together;
 15. one JSON line of kernels (the float32 and the bfloat16 instantiations
    at head_dim 64, 32 and 80, each with its launches on every path, the
-   mesh's per rank; head_dim 80 on phase 3b's path), the card line, and
-   the result line.
+   mesh's per rank; head_dim 80 on phase 3b's path; the causal hd-64 GQA
+   instantiation on phase 3c's), the card line, and the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -333,6 +352,12 @@ SLICE = dict(model_type="small", depth=12, image_size=256, patch_size=16,
 # entity batch: the kernel at B512·H16·N321·hd80), 16 relations with 2
 # unseen, 500 candidates per query
 HUGE = dict(SLICE, model_type="huge", depth=32, n_ent=512, n_rel=16, n_unseen=2)
+
+# LFM2-8B-A1B as the encoder (phase 3c) at its published widths, its depth
+# cut to layer_types[0:10] as the benchmark's lfm2-8b-a1b configuration has
+# it (2 dense conv layers, then two periods of [attention, conv, conv,
+# conv]), the vocabulary 65,536, on phase 3b's sizes
+LFM2 = dict(HUGE, model_type="lfm2-8b-a1b", depth=10, num_dense_layers=2, vocab_size=65536)
 
 # the fusion training step at the full width of M3AE-small, its depth cut to
 # 4 / 4 (tiny4; phase 12's step bench runs depth 12 / 8), and the default
@@ -471,6 +496,48 @@ def attention_case(name, B, H, N, hd, dtype, mask_kind, gen, timed=False, n_text
     return rec
 
 
+def causal_case(name, B, H, H_kv, N, dtype, gen, timed=False, tail_pad=0):
+    """The causal kernel with grouped KV heads (``grouped_attention``) at
+    head_dim 64; ``tail_pad``: PAD keys at the end of every row."""
+    dev, hd = torch.device("cuda"), 64
+    q = torch.randn(B, H, N, hd, generator=gen).to(dev, dtype)
+    k, v = (torch.randn(B, H_kv, N, hd, generator=gen).to(dev, dtype) for _ in range(2))
+    pad = None
+    if tail_pad:
+        pad = torch.zeros(B, N, device=dev)
+        pad[:, N - tail_pad:] = 1.0
+    scale = hd ** -0.5
+    out = attention.grouped_attention(q, k, v, pad, scale)
+    torch.cuda.synchronize()
+    ref = attention.attention_reference(q, k, v, pad, scale, causal=True)
+    err = float((out.float() - ref.float()).abs().max())
+    ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
+    rec = dict(case=name, B=B, H=H, H_kv=H_kv, N=N, hd=hd, dtype=str(dtype).split(".")[-1],
+               mask=f"causal, {tail_pad} PAD", max_abs_err=err, tol=TOL[dtype], ok=ok)
+    if timed:
+        rec["ms"] = time_ms(lambda: attention.grouped_attention(q, k, v, pad, scale))
+        rec["plain_ms"] = time_ms(
+            lambda: attention.attention_reference(q, k, v, pad, scale, causal=True))
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        flops = 4.0 * B * H * N * (N + 1) / 2 * hd
+        nbytes = (2 * B * H + 2 * B * H_kv) * N * hd * q.element_size()
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        rec["bound_ms"] = max(t_ops, t_bytes)
+        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["passes_floor_ms"] = max(PASSES[dtype] * t_ops, t_bytes)
+    log(f"[kernel] {name:<22} {rec['dtype']:<8} B{B} H{H}/{H_kv} N{N} hd{hd} causal "
+        f"pad={tail_pad} max|d|={err:.3e} (tol {TOL[dtype]:g})"
+        + (f"  kernel {rec['ms']:.3f} ms  plain {rec['plain_ms']:.3f} ms  "
+           f"sdpa {rec['library_ms']:.3f} ms  bound {rec['bound_ms']:.3f} ms "
+           f"({rec['bound_by']}, share {rec['share_of_bound']:.3f}; with the kernel's passes "
+           f"{rec['passes_floor_ms']:.3f} ms)" if timed else ""))
+    if not ok:
+        raise AssertionError(f"the causal kernel disagrees with its plain version: {rec}")
+    return rec
+
+
 def phase_kernels():
     gen = torch.Generator().manual_seed(0)
     recs = []
@@ -546,6 +613,15 @@ def phase_kernels():
                                    timed=True, n_text=16))
     recs.append(attention_case("entry_nodes_n25", 12, 6, 25, 64, torch.float32, "entity", gen,
                                timed=True, n_text=8))
+    # the causal instantiations at LFM2-8B-A1B's 32 query heads over 8 KV
+    # heads (phase 3c): its entity sweep, relation sweep and generator
+    # pass, and a ragged N with PAD at the tail, from a generator of their own
+    gen = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        recs.append(causal_case("lfm2_entity", 512, 32, 8, 321, dtype, gen, timed=True))
+        recs.append(causal_case("lfm2_relation", 64, 32, 8, 321, dtype, gen, timed=True))
+        recs.append(causal_case("lfm2_generate", 1, 32, 8, 321, dtype, gen, timed=True))
+        recs.append(causal_case("lfm2_ragged_n37", 3, 32, 8, 37, dtype, gen, tail_pad=5))
     return recs
 
 
@@ -1192,7 +1268,9 @@ def _phase_cli(cfg: dict, card: str) -> dict:
     mrr = [r["zsl_mrr"] for r in records if "zsl_mrr" in r]
     if len(losses) != 2 or len(mrr) != 1 or not all(map(math.isfinite, losses + mrr)):
         raise AssertionError(f"metrics records: loss {losses}, zsl_mrr {mrr}")
-    (trace_file,) = os.listdir("prof")
+    # the profiled epoch leaves its device trace and its spans' snapshot
+    # (core/profiling.trace: ``*.pt.trace.json``, ``*.spans.json``)
+    (trace_file,) = [f for f in os.listdir("prof") if f.endswith(".pt.trace.json")]
     trace_bytes = os.path.getsize(os.path.join("prof", trace_file))
     with open(os.path.join("prof", trace_file)) as f:
         traced = "attention_fwd_kernel" in f.read()
@@ -1432,6 +1510,89 @@ def phase_huge(data_dir: str, cfg: dict = HUGE, card: str = "no card", device=No
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return dict(float32=info, bfloat16=info16)
+
+
+def phase_lfm2(data_dir: str, cfg: dict = LFM2, card: str = "no card", device=None) -> dict:
+    """Phase 3c: the serving round with LFM2-8B-A1B as the encoder, its depth
+    cut to ``cfg["depth"]`` layers, through phase 3's entry points. The
+    launch counts are reset just before the round, which must launch
+    exactly attention layers × (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen) causal
+    hd-64 kernels of the model's query heads per KV head, and no other."""
+    from mre_tpu_torch.models.lfm2 import LFM2 as LFM2Encoder
+
+    gates = Gates("lfm2")
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    write_zsl_dataset(data_dir, n_ent=cfg["n_ent"], n_rel=cfg["n_rel"],
+                      n_unseen=cfg["n_unseen"], triples_per_rel=cfg["triples_per_rel"],
+                      n_candidates=cfg["n_candidates"], image_size=cfg["image_px"], seed=0)
+    data = load_zsl_dataset(data_dir, mode="train")
+    store = MultimodalStore(data["mm_info"], data["rel_des"], MultimodalPipelineConfig(
+        image_size=cfg["image_size"], vocab_size=cfg["vocab_size"]))
+    table = TripleTable.build(np.asarray(data["triples"]).T,
+                              len(data["e2id"]), len(data["r2id"]))
+    t["fixture_s"] = time.perf_counter() - t0
+    preset = transformer_preset(cfg["model_type"])
+    layer_types = tuple(preset.layer_types[:cfg["depth"]])
+    t0 = time.perf_counter()
+    fusion = FusionTrainer(table, store, FusionConfig(
+        model_type=cfg["model_type"], emb_dim=200, noise_dim=15, patch_size=cfg["patch_size"],
+        seed=192, encoder=dict(layer_types=layer_types,
+                               num_dense_layers=cfg["num_dense_layers"])), device=device)
+    zsl = ZSLModule(data_dir, data["r2id"], data["e2id"],
+                    ZSLConfig(emb_dim=200, noise_dim=15, test_sample=20, max_neighbor=50),
+                    device=device)
+    sync()
+    t["build_models_s"] = time.perf_counter() - t0
+    encoder = fusion.model.M3AEmodel.encoder
+    gates.check(isinstance(encoder, LFM2Encoder),
+                f"model type {cfg['model_type']!r} built {type(encoder).__name__}, not LFM2")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ent = fusion.generate_ent_embeddings()
+    sync()
+    t["ent_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rel = fusion.generate_rel_embeddings()
+    sync()
+    t["rel_s"] = time.perf_counter() - t0
+    zsl.update_embed(ent, rel)
+    t0 = time.perf_counter()
+    res = zsl.evaluate(fusion, verbose=False, eval_path="rel_shared", return_ranks=True)
+    sync()
+    t["eval_s"] = time.perf_counter() - t0
+    launches, launches_hd = dict(attention.LAUNCHES), by_head_dim()
+
+    on_card = fusion.device.type == "cuda"
+    attn_layers = layer_types.count("full_attention")
+    passes = (math.ceil(cfg["n_ent"] / 512) + math.ceil(cfg["n_rel"] / 64) + cfg["n_unseen"])
+    key = attention.causal_key(preset.emb_dim // preset.num_heads, "float32",
+                               preset.num_heads // preset.num_kv_heads)
+    expect_hd = {key: attn_layers * passes} if on_card else {}
+    log(f"[lfm2] {cfg['model_type']} at depth {cfg['depth']} ({attn_layers} attention "
+        f"layers): {t}  launches {launches} {launches_hd}  expected {expect_hd} ({card})")
+    log(f"[lfm2] metrics: hits10 {res['hits10']:.4f} mrr {res['mrr']:.6f} n {res['n']}")
+    gates.check(not any(launches.values()),
+                f"the LFM2 round launched the non-causal kernel: {launches}")
+    gates.check(launches_hd == expect_hd,
+                f"causal launches {launches_hd}, expected {expect_hd}")
+    gates.check(ent.shape == (cfg["n_ent"], 200) and rel.shape == (cfg["n_rel"], 200),
+                f"embedding shapes {tuple(ent.shape)}, {tuple(rel.shape)}")
+    gates.check(bool(torch.isfinite(ent).all() and torch.isfinite(rel).all()),
+                "non-finite embeddings")
+    gates.check(res["n"] > 0 and math.isfinite(res["mrr"]), f"bad evaluation result: {res}")
+    info = dict(times=t, launches=launches, launches_by_head_dim=launches_hd,
+                expected=expect_hd, layer_types=layer_types,
+                metrics={k: res[k] for k in ("hits10", "hits5", "hits1", "mrr", "n")},
+                peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+    del fusion, zsl, ent, rel
+    if on_card:
+        torch.cuda.empty_cache()
+    gates.close()
+    return info
 
 
 def phase_bf16_train(trained: dict, f32_step_ms: dict, cfg: dict = TRAIN,
@@ -3220,16 +3381,19 @@ def main() -> int:
     lib = attention.build()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     build = attention.build_report(lib)
-    for (hd, dtype), r in sorted(build.items()):
-        log(f"[build] attention_fwd_kernel<{hd}, {dtype}>: {r['registers']} registers, "
+    for key, r in sorted(build.items()):
+        name = ("attention_fwd_kernel<{}, {}>" if len(key) == 2
+                else "attention_fwd_causal_kernel<{}, {}, {}>").format(*key)
+        log(f"[build] {name}: {r['registers']} registers, "
             f"spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
             + ", ".join(f"{op} {r[op.lower()]}" for op in attention.SASS_OPS))
     uncounted = [key for key, r in build.items()
                  if any(r[op.lower()] is None for op in attention.SASS_OPS)]
     if uncounted:
         raise AssertionError(f"SASS not counted (no cuobjdump) for {uncounted}")
-    if set(build) != attention.WGMMA_INSTANTIATIONS:
-        raise AssertionError(f"ptxas reported {sorted(build)}, expected every head_dim × dtype")
+    if set(build) != attention.WGMMA_INSTANTIATIONS | attention.CAUSAL_INSTANTIATIONS:
+        raise AssertionError(f"ptxas reported {sorted(build)}, expected every head_dim × dtype "
+                             "and the causal instantiations")
     spills = [key for key, r in build.items() if r["spill_stores"] or r["spill_loads"]]
     if spills:
         raise AssertionError(f"register spills: {spills}")
@@ -3253,6 +3417,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         slice_info, served = timed("3_serving", phase_slice, os.path.join(tmp, "serve"))
         huge_info = timed("3b_huge", phase_huge, os.path.join(tmp, "huge"), card=card)
+        lfm2_info = timed("3c_lfm2", phase_lfm2, os.path.join(tmp, "lfm2"), card=card)
         train_info, trained = timed("4_training", phase_train, os.path.join(tmp, "train"))
         zsl_info = timed("5_zsl", phase_zsl, served, card=card)
         cli_info = timed("6_cli", phase_cli, os.path.join(tmp, "cli"), card=card)
@@ -3331,12 +3496,19 @@ def main() -> int:
             # by instantiation there
             entry("attention_fwd_hd80", kernel, "huge_entity",
                   {"huge_serving": huge_info[dtype]["launches_by_head_dim"].get(
-                      f"hd80.{dtype}", 0)}, dtype))]}
+                      f"hd80.{dtype}", 0)}, dtype),
+            # the causal GQA instantiation runs on the LFM2 path (phase 3c,
+            # float32) alone; no TPU kernel stands behind it
+            entry("attention_fwd_causal_gqa4", "none (LFM2-8B-A1B's attention)", "lfm2_entity",
+                  {"lfm2_serving": lfm2_info["launches_by_head_dim"].get(
+                      attention.causal_key(64, dtype, 4), 0)}, dtype))]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
-                       build={f"hd{hd}_{dt}": r for (hd, dt), r in build.items()},
-                       slice=slice_info, huge=huge_info, train=train_info, zsl=zsl_info,
+                       build={"_".join([f"hd{key[0]}", *map(str, key[1:])]): r
+                              for key, r in build.items()},
+                       slice=slice_info, huge=huge_info, lfm2=lfm2_info, train=train_info,
+                       zsl=zsl_info,
                        cli=cli_info,
                        bf16_serving=serve16_info, bf16_train=train16_info,
                        bf16_gan=gan16_info, bf16_cli=cli16_info, kge=kge_info,

@@ -3,10 +3,14 @@ its counters, and the Chrome-trace exporter.
 
 ``span(name)`` marks a layer boundary, and ``spanned(name)`` puts one
 around every call of the function it decorates; ``count(name, n)`` adds
-to a counter. The program has three: ``h2d.bytes``, the bytes handed to
+to a counter. The program has five: ``h2d.bytes``, the bytes handed to
 the host→device copies of ``FusionTrainer._put`` and ``ZSLModule._put``;
 ``zsl.generate.rows`` and ``zsl.generate.encoded``, the rows asked of
-``FusionTrainer.generate`` and the distinct ones its text pass encoded.
+``FusionTrainer.generate`` and the distinct ones its text pass encoded;
+``moe.routed`` and ``moe.max_expert_rows``, the LFM2 encoder's token-expert
+assignments and its largest expert's rows, summed over its MoE layers'
+calls (``models/lfm2.py``, beside its spans ``lfm2.conv``, ``lfm2.attn``,
+``lfm2.moe`` ⊃ ``moe.route``, ``moe.experts``).
 
 * Tracing is off by default. A span then costs one check and returns a
   shared no-op context: no clock is read and no ``record_function`` is

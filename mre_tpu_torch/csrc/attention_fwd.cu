@@ -103,6 +103,19 @@
 //   call: entity 2.02, decoder 0.36). One block per SM (its 240-register
 //   consumers). At hd 80 a 64-key float32 tile outgrows shared memory.
 //
+// The causal variant with grouped KV heads (LFM2-8B-A1B's attention layers:
+// 32 query heads over 8 KV heads of 64; `attention_fwd_causal_kernel`, its
+// own instantiations, the same body): compile-time CAUSAL and GROUP (query
+// heads per KV head). K and V are [B·H/GROUP, N, hd]: query head h of batch
+// row b loads KV head b·H/GROUP + h/GROUP through its TMA coordinate, so no
+// copy of K and V spreads them over the query heads. A block stops at the key
+// tile holding its last query row, so the tiles wholly above its diagonal are
+// neither loaded nor multiplied; in the tiles it does run, a key after a row's
+// own position gets -inf after the codes' FMA (only the diagonal tiles have
+// such keys). A row's first tile holds key 0, so its running max is finite
+// from the first tile on. The non-causal instantiations compile the same body
+// with both switches off, to the code they had.
+//
 // What bounds the design, as far as switching its parts off tells (PERF.md
 // §6): the memory pipeline alone (TMA ring, Q loads, O stores; each of a
 // (b, h)'s query tiles reads all its K and V) takes 0.24 ms of bf16's 0.54
@@ -437,11 +450,15 @@ __device__ __forceinline__ void split_tile(const unsigned char* raw, unsigned ch
     }
 }
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
-attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                     const T* __restrict__ q, const float* __restrict__ mask,
-                     T* __restrict__ out, int H, int N, float scale) {
+// The kernel's body; tk and tv point at the launching kernel's __grid_constant__
+// tensor maps. CAUSAL and GROUP: the causal variant with grouped KV heads
+// (above); off, the body of the plain masked attention.
+template <int HD, typename T, bool CAUSAL, int GROUP>
+__device__ __forceinline__ void attention_fwd_body(const CUtensorMap* tk, const CUtensorMap* tv,
+                                                   const T* __restrict__ q,
+                                                   const float* __restrict__ mask,
+                                                   T* __restrict__ out, int H, int N,
+                                                   float scale) {
     using L = Layout<HD, T>;
     constexpr bool F32 = L::F32;
     constexpr int BK = L::BK, STAGES = L::STAGES, CONSUMERS = L::CONSUMERS;
@@ -461,7 +478,18 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
     const int b = bh / H;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
-    const int tiles = (N + BK - 1) / BK;
+    int kvh, tiles;                         // K/V's TMA coordinate, key tiles to run
+    if constexpr (GROUP == 1) {
+        kvh = bh;
+    } else {
+        kvh = b * (H / GROUP) + (bh - b * H) / GROUP;
+    }
+    if constexpr (CAUSAL) {
+        const int last = min(N, (int)(blockIdx.x + 1) * L::BLOCK_Q);   // past the block's last row
+        tiles = (last + BK - 1) / BK;
+    } else {
+        tiles = (N + BK - 1) / BK;
+    }
 
     if (tid == 0) {
         for (int s = 0; s < STAGES; ++s) {
@@ -499,9 +527,9 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
                 const uint32_t kdst = smem_addr(smem + L::RAW + s * 2 * L::TILE);
 #pragma unroll
                 for (int x = 0; x < L::BOXES; ++x) {
-                    tma_load_3d(kdst + x * BK * L::ROW, &tk, full(s), x * L::BOX, k0, bh);
-                    tma_load_3d(kdst + L::TILE + x * BK * L::ROW, &tv, full(s), x * L::BOX,
-                                k0, bh);
+                    tma_load_3d(kdst + x * BK * L::ROW, tk, full(s), x * L::BOX, k0, kvh);
+                    tma_load_3d(kdst + L::TILE + x * BK * L::ROW, tv, full(s), x * L::BOX,
+                                k0, kvh);
                 }
             } else {
                 mbar_arrive(full(s));
@@ -645,8 +673,9 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
         wgmma_commit();
     };
     // S's logits in log2 units (the where-select through the codes), the
-    // running max, this tile's probabilities and sums; c: O's rescale
-    auto softmax = [&](const float* ct, float& c0, float& c1) {
+    // running max, this tile's probabilities and sums; c: O's rescale. k0:
+    // the tile's first key (causal: keys after a row's own position -> -inf)
+    auto softmax = [&](const float* ct, int k0, float& c0, float& c1) {
         float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
@@ -655,6 +684,13 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
             s[4 * n + 1] = fmaf(s[4 * n + 1], c.z, c.w);
             s[4 * n + 2] = fmaf(s[4 * n + 2], c.x, c.y);
             s[4 * n + 3] = fmaf(s[4 * n + 3], c.z, c.w);
+            if constexpr (CAUSAL) {
+                const int key = k0 + 8 * n + 2 * t, r0 = row0 + g, r1 = r0 + 8;
+                if (key > r0) s[4 * n + 0] = -INFINITY;
+                if (key + 1 > r0) s[4 * n + 1] = -INFINITY;
+                if (key > r1) s[4 * n + 2] = -INFINITY;
+                if (key + 1 > r1) s[4 * n + 3] = -INFINITY;
+            }
             mx0 = fmaxf(mx0, fmaxf(s[4 * n + 0], s[4 * n + 1]));
             mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
         }
@@ -662,7 +698,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        // a tile always holds a key below N, so the new max is finite
+        // a tile always holds a key below N (causal: the first tile holds key
+        // 0), so the new max is finite
         const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
         c0 = ex2(m0 - mn0);                 // 0 on the first tile
         c1 = ex2(m1 - mn1);
@@ -708,7 +745,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
         qk(0);
         wgmma_wait<0>();
         fence_regs(s);
-        softmax(ct, c0, c1);                // O is still 0: nothing to rescale
+        softmax(ct, 0, c0, c1);             // O is still 0: nothing to rescale
         make_p();
     }
     for (int it = 1; it < tiles; ++it) {
@@ -726,7 +763,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
             pv(v_of(it - 1));               // the previous tile's P·V
             wgmma_wait<1>();                // S has landed, P·V may still run
             fence_regs(s);
-            softmax(ct, c0, c1);
+            softmax(ct, it * BK, c0, c1);
             wgmma_wait<0>();                // the previous tile's P·V has landed
             fence_regs(o);
 #pragma unroll
@@ -752,6 +789,24 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
     if (!F32 && lane == 0) mbar_arrive(empty((tiles - 1) % STAGES));
 
     if (active) store_rows<HD, T>(out, base, row0, N, g, t, o, l0, l1);
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const T* __restrict__ q, const float* __restrict__ mask,
+                     T* __restrict__ out, int H, int N, float scale) {
+    attention_fwd_body<HD, T, false, 1>(&tk, &tv, q, mask, out, H, N, scale);
+}
+
+// causal, GROUP query heads per KV head; tk and tv over [B·H/GROUP, N, HD]
+template <int HD, typename T, int GROUP>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
+attention_fwd_causal_kernel(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, const T* __restrict__ q,
+                            const float* __restrict__ mask, T* __restrict__ out, int H, int N,
+                            float scale) {
+    attention_fwd_body<HD, T, true, GROUP>(&tk, &tv, q, mask, out, H, N, scale);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -797,20 +852,33 @@ int encode(CUtensorMap* map, const void* ptr, int BH, int N) {
     return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <int HD, typename T>
+// GROUP 0: the plain masked kernel; else the causal one with GROUP query heads
+// per KV head (k and v hold B·H/GROUP heads)
+template <int HD, typename T, int GROUP>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, int B, int H, int N, float scale, cudaStream_t stream) {
     using L = Layout<HD, T>;
+    using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const T*, const float*, T*,
+                            int, int, float);
     if (L::BYTES > SMEM_MAX) return -4;     // a sweep's tile too large for this head_dim
+    Kernel kernel;
+    int kv_heads;
+    if constexpr (GROUP == 0) {
+        kernel = attention_fwd_kernel<HD, T>;
+        kv_heads = B * H;
+    } else {
+        kernel = attention_fwd_causal_kernel<HD, T, GROUP>;
+        kv_heads = B * (H / GROUP);
+    }
     CUtensorMap tk, tv;
-    int rc = encode<HD, T>(&tk, k, B * H, N);
-    if (rc == 0) rc = encode<HD, T>(&tv, v, B * H, N);
+    int rc = encode<HD, T>(&tk, k, kv_heads, N);
+    if (rc == 0) rc = encode<HD, T>(&tv, v, kv_heads, N);
     if (rc != 0) return rc;
     cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((N + L::BLOCK_Q - 1) / L::BLOCK_Q, B * H);
-    attention_fwd_kernel<HD, T><<<grid, L::THREADS, L::BYTES, stream>>>(
+    kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
         tk, tv, static_cast<const T*>(q), mask, static_cast<T*>(out), H, N, scale);
     return (int)cudaGetLastError();
 }
@@ -833,7 +901,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (B <= 0 || H <= 0 || N <= 0) return -1;
 #define ATTN_LAUNCH(HD, T) \
-    if (head_dim == HD) return wgmma::launch<HD, T>(q, k, v, m, out, B, H, N, scale, s)
+    if (head_dim == HD) return wgmma::launch<HD, T, 0>(q, k, v, m, out, B, H, N, scale, s)
     if (dtype == 0) {
         ATTN_LAUNCH(32, float);
         ATTN_LAUNCH(64, float);
@@ -844,5 +912,24 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
         ATTN_LAUNCH(80, __nv_bfloat16);
     }
 #undef ATTN_LAUNCH
+    return -1;
+}
+
+// The causal kernel with grouped KV heads: q, out [B, H, N, head_dim]; k, v
+// [B, H_kv, N, head_dim], query head h reading KV head h / (H / H_kv); mask as
+// above. Returns as attention_fwd; -1 also when no instantiation has this
+// head_dim, dtype and H / H_kv.
+extern "C" int attention_fwd_causal(const void* q, const void* k, const void* v,
+                                    const void* mask, void* out, int B, int H, int H_kv,
+                                    int N, int head_dim, int dtype, float scale,
+                                    void* stream) {
+    const float* m = static_cast<const float*>(mask);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (B <= 0 || H <= 0 || H_kv <= 0 || N <= 0 || H % H_kv != 0) return -1;
+    if (head_dim == 64 && H / H_kv == 4) {
+        if (dtype == 0) return wgmma::launch<64, float, 4>(q, k, v, m, out, B, H, N, scale, s);
+        if (dtype == 1)
+            return wgmma::launch<64, __nv_bfloat16, 4>(q, k, v, m, out, B, H, N, scale, s);
+    }
     return -1;
 }

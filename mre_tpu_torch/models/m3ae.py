@@ -22,6 +22,12 @@ deterministic by default, as in JAX: with nonzero ``att_drop`` / ``drop``
 
 ``load_cc12m_checkpoint`` reads the upstream flax CC12M pickle without
 flax and copies its encoder-side leaves into the module.
+
+A config with ``encoder="lfm2"`` (an ``ENCODER_PRESETS`` model type, such
+as ``lfm2-8b-a1b``) builds ``models/lfm2.py``'s stack in place of the ViT
+encoder, over the same input assembly: ``forward_representation`` then
+pools each row at its last non-PAD position (causal attention leaves
+position 0 blind), and the masked pass, which only training runs, raises.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from torch import nn
 from mre_tpu_torch.core.config import Config, transformer_preset
 from mre_tpu_torch.interop import load_flax, module_to_flax
 from mre_tpu_torch.models.initializers import Dense, normal
+from mre_tpu_torch.models.lfm2 import LFM2, last_valid
 from mre_tpu_torch.models.transformer import MLP, Transformer, compute_dtype
 from mre_tpu_torch.ops.masking import random_masking, restore_with_mask_tokens
 from mre_tpu_torch.ops.pos_embed import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
@@ -86,10 +93,16 @@ class M3AE(nn.Module):
                 continue
             setattr(self, name, nn.Parameter(torch.zeros(1, 1, cfg[width])))
         impl = cfg.get("attention_impl", "auto")
+        self.lfm2 = cfg.get("encoder") == "lfm2"
         drops = dict(att_drop=cfg.att_drop, drop=cfg.drop, drop_path=cfg.drop_path,
                      dtype=compute_dtype(cfg.get("compute_dtype", "float32")))
-        self.encoder = Transformer(cfg.emb_dim, cfg.depth, cfg.num_heads,
-                                   cfg.mlp_ratio, impl, **drops)
+        if self.lfm2:
+            if cfg.att_drop or cfg.drop or cfg.drop_path:
+                raise ValueError("the LFM2 encoder has no dropout")
+            self.encoder = LFM2(cfg, impl, drops["dtype"])
+        else:
+            self.encoder = Transformer(cfg.emb_dim, cfg.depth, cfg.num_heads,
+                                       cfg.mlp_ratio, impl, **drops)
         self.decoder = Transformer(cfg.dec_emb_dim, cfg.dec_depth,
                                    cfg.dec_num_heads, cfg.mlp_ratio, impl, **drops)
         self.decoder_input_projection = Dense(cfg.emb_dim, cfg.dec_emb_dim)
@@ -116,7 +129,8 @@ class M3AE(nn.Module):
     def forward_representation(self, image, text, text_padding_mask):
         """image: [B, L, p²·3] patches or None; text: [B, T] ids or None;
         text_padding_mask: [B, T], 1.0 = PAD. Returns (cls [B, 1, D],
-        all tokens [B, 1+L+T, D])."""
+        all tokens [B, 1+L+T, D]); with the LFM2 encoder the first is each
+        row's state at its last non-PAD position."""
         ref = image if image is not None else text
         batch, dev = ref.shape[0], ref.device
         emb = self.cfg.emb_dim
@@ -129,7 +143,10 @@ class M3AE(nn.Module):
         if text is not None:
             toks.append(self._embed_text(text))
             pads.append(text_padding_mask.to(torch.float32))
-        x = self.encoder(torch.cat(toks, dim=1), torch.cat(pads, dim=1))
+        pads = torch.cat(pads, dim=1)
+        x = self.encoder(torch.cat(toks, dim=1), pads)
+        if self.lfm2:
+            return last_valid(x, pads), x
         return x[:, :1, :], x
 
     def _embed_image(self, image):
@@ -151,6 +168,9 @@ class M3AE(nn.Module):
         int(L·(1 − ratio)) tokens, the first of its ``*_ids_shuffle``
         permutation [L]. Returns (cls, image_x, text_x, image_mask,
         text_mask, image_ids_restore, text_ids_restore) as JAX does."""
+        if self.lfm2:
+            raise NotImplementedError("the LFM2 encoder serves only: its masked pass "
+                                      "(training) is not supported")
         ref = image if image is not None else text
         batch, dev = ref.shape[0], ref.device
         emb = self.cfg.emb_dim

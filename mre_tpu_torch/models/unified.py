@@ -50,6 +50,8 @@ def unified_config(model_type: str = "small", updates: dict | None = None) -> Co
         norm_rel_emb=False,
         compute_dtype="float32",     # forwarded to the M3AE transformers
         attention_impl="auto",       # forwarded to the M3AE transformers
+        encoder=None,                # overrides of the model type's encoder preset (a cut
+                                     # LFM2 ``layer_types`` and ``num_dense_layers``)
     ))
     if updates:
         unknown = set(updates) - set(cfg)
@@ -69,7 +71,7 @@ class UnifiedModel(nn.Module):
             image_mask_ratio=cfg.image_mask_ratio,
             text_mask_ratio=cfg.text_mask_ratio,
             compute_dtype=cfg.compute_dtype,
-            attention_impl=cfg.attention_impl))
+            attention_impl=cfg.attention_impl, **(cfg.get("encoder") or {})))
         self.reduced_dim = m3ae_cfg.emb_dim
         self.dim = cfg.emb_dim
         self.M3AEmodel = M3AE(text_vocab_size, cfg.patch_size,

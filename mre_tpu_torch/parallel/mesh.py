@@ -421,8 +421,12 @@ def shard_transformer_ffn(module: torch.nn.Module, mesh: Mesh):
     once. A hidden width that the model axis does not divide stays
     replicated, as in JAX. The blocks are put back on exit. Yields
     ``module``; with one model rank it is left as it is."""
+    from mre_tpu_torch.models.lfm2 import LFM2
     from mre_tpu_torch.models.transformer import TensorParallelMLP, TransformerMLP
 
+    if any(isinstance(m, LFM2) for m in module.modules()):
+        raise NotImplementedError("shard_transformer_ffn: the LFM2 encoder has no "
+                                  "tensor-parallel FFN")
     swapped = []
     if mesh.n_model > 1:
         for parent in list(module.modules()):

@@ -46,7 +46,11 @@ and the FFNs over ``model`` (tensor parallel), gathers the reps in entity
 order and runs the RGCN sweep replicated.
 
 Weights are the seeded port init, or carried from the JAX package with
-``interop.load_flax(trainer.model, params, spectral)``.
+``interop.load_flax(trainer.model, params, spectral)``. An LFM2 model type
+(``core/config.py``'s ``ENCODER_PRESETS``) is built on the trainer's device,
+so its encoder draws its weights there (``models/lfm2.py``), and serves
+only: its training steps raise. ``FusionConfig.encoder`` overrides the
+encoder preset's keys (a cut LFM2 ``layer_types`` and ``num_dense_layers``).
 ``compute_dtype="bfloat16"`` runs the M3AE transformers' Dense layers and
 the attention kernel in bfloat16 over float32 parameters; parameters, adam
 state and checkpoints stay float32. ``image_cache`` decodes every entity
@@ -68,6 +72,7 @@ import threading
 import numpy as np
 import torch
 
+from mre_tpu_torch.core.config import transformer_preset
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.core.profiling import count, span, spanned
 from mre_tpu_torch.data.graph_sampler import NeighborSampler, edges_from_tasks
@@ -149,6 +154,7 @@ class FusionConfig:
     compute_dtype: str = "float32"   # the M3AE transformers' dtype ("bfloat16")
     image_cache: bool = False        # pre-decode every image once
     attention_impl: str = "auto"     # auto | kernel | torch
+    encoder: dict | None = None      # encoder preset overrides (models/unified.py)
 
 
 class FusionTrainer:
@@ -165,16 +171,19 @@ class FusionTrainer:
             secs = store.precompute_image_cache()
             print(f"[fusion] image cache: {store.num_nodes} entities "
                   f"pre-decoded in {secs:.1f}s", flush=True)
-        model = UnifiedModel(
-            text_vocab_size=store.vocab_size,
-            num_relations=table.n_relations,
-            config=unified_config(cfg.model_type, dict(
-                emb_dim=cfg.emb_dim, noise_dim=cfg.noise_dim,
-                patch_size=cfg.patch_size,
-                image_mask_ratio=cfg.image_mask_ratio,
-                text_mask_ratio=cfg.text_mask_ratio,
-                contrastive=cfg.contrastive_loss_weight > 0 and not cfg.text_only,
-                compute_dtype=cfg.compute_dtype, attention_impl=cfg.attention_impl)))
+        self.serving_only = transformer_preset(cfg.model_type).get("encoder") == "lfm2"
+        with torch.device(self.device) if self.serving_only else contextlib.nullcontext():
+            model = UnifiedModel(
+                text_vocab_size=store.vocab_size,
+                num_relations=table.n_relations,
+                config=unified_config(cfg.model_type, dict(
+                    emb_dim=cfg.emb_dim, noise_dim=cfg.noise_dim,
+                    patch_size=cfg.patch_size,
+                    image_mask_ratio=cfg.image_mask_ratio,
+                    text_mask_ratio=cfg.text_mask_ratio,
+                    contrastive=cfg.contrastive_loss_weight > 0 and not cfg.text_only,
+                    compute_dtype=cfg.compute_dtype, attention_impl=cfg.attention_impl,
+                    encoder=cfg.encoder)))
         self.model = init_weights(model, cfg.seed).to(self.device).eval()
         self.kg = DeviceKG.from_table(table, self.device)
 
@@ -337,10 +346,16 @@ class FusionTrainer:
         return tuple(pmesh.row_shard(self.mesh, k) if k % n == 0 else None
                      for k in (n_nodes, n_edges))
 
+    def _check_trainable(self):
+        if self.serving_only:
+            raise NotImplementedError(f"model type {self.cfg.model_type!r}: training the "
+                                      "LFM2 encoder is not supported (it serves only)")
+
     @spanned("fusion.step")
     def step(self, batch: dict, draws: dict | None = None) -> dict:
         """One optimizer step on a device batch; returns ``info`` as 0-d
         tensors on the device (no host sync)."""
+        self._check_trainable()
         if draws is None:
             with span("fusion.draw"):
                 draws = self.draw(batch)
@@ -368,6 +383,7 @@ class FusionTrainer:
         of each ``info`` term, or ``{}`` for an epoch with no batch.
         ``on_step``, if given, gets each step's ``info`` (0-d tensors on the
         device) as the step is queued."""
+        self._check_trainable()
         q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
         stop = object()
         halt = threading.Event()

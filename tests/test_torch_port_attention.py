@@ -276,5 +276,82 @@ def test_one_design_at_every_head_dim():
     assert port.HEAD_DIMS == (32, 64, 80)
     assert port.WGMMA_INSTANTIATIONS == {(hd, dtype) for hd in port.HEAD_DIMS
                                          for dtype in ("float32", "bfloat16")}
-    assert set(port.LAUNCHES_BY_HEAD_DIM) == {f"hd{hd}.{dtype}"
-                                              for hd, dtype in port.WGMMA_INSTANTIATIONS}
+    assert set(port.LAUNCHES_BY_HEAD_DIM) == (
+        {f"hd{hd}.{dtype}" for hd, dtype in port.WGMMA_INSTANTIATIONS}
+        | {port.causal_key(*key) for key in port.CAUSAL_INSTANTIATIONS})
+    assert port.CAUSAL_INSTANTIATIONS == {(64, "float32", 4), (64, "bfloat16", 4)}
+
+
+def _per_head_causal(q, k, v, pad, scale):
+    """Causal grouped attention one query head and one row at a time, in
+    float64: query head h reads KV head h // (H // H_kv)."""
+    B, H, N, _ = q.shape
+    group = H // k.shape[1]
+    out = np.zeros(q.shape)
+    for b in range(B):
+        for h in range(H):
+            kh, vh = k[b, h // group].astype(np.float64), v[b, h // group].astype(np.float64)
+            for i in range(N):
+                s = kh[:i + 1] @ q[b, h, i].astype(np.float64) * scale
+                if pad is not None:
+                    s = np.where(pad[b, :i + 1] > 0, -1e7, s)
+                p = np.exp(s - s.max())
+                out[b, h, i] = p @ vh[:i + 1] / p.sum()
+    return out
+
+
+@pytest.mark.parametrize("kv_heads", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["none", "tail"])
+def test_reference_causal_grouped(kv_heads, kind):
+    """``attention_reference(..., causal=True)`` with fewer KV heads than
+    query heads, and ``grouped_attention`` on CPU tensors (its plain path),
+    against the attention worked out per head and per query row."""
+    B, H, N, hd = 2, 4, 19, 32
+    q = _qkv(B, H, N, hd, seed=kv_heads)[0]
+    k, v = _qkv(B, kv_heads, N, hd, seed=10 + kv_heads)[:2]
+    pad = _mask(B, N, kind)
+    scale = hd ** -0.5
+    want = _per_head_causal(q, k, v, pad, scale)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    tpad = None if pad is None else torch.from_numpy(pad)
+    out = port.attention_reference(tq, tk, tv, tpad, scale, causal=True)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    auto = port.grouped_attention(tq, tk, tv, tpad, scale)
+    np.testing.assert_array_equal(auto.numpy(), out.numpy())
+    # not causal: the M3AE function with K and V repeated per group
+    rep = H // kv_heads
+    full = port.attention_reference(tq, tk.repeat_interleave(rep, 1),
+                                    tv.repeat_interleave(rep, 1), tpad, scale)
+    np.testing.assert_array_equal(port.attention_reference(tq, tk, tv, tpad, scale).numpy(),
+                                  full.numpy())
+
+
+def test_grouped_attention_refuses_what_it_does_not_take():
+    q = torch.zeros(1, 4, 5, 32)
+    k = torch.zeros(1, 2, 5, 32)
+    with pytest.raises(ValueError, match="KV heads"):
+        port.grouped_attention(q, k, q, None, 1.0)                 # k and v head counts differ
+    with pytest.raises(ValueError, match="KV heads"):
+        port.grouped_attention(q, torch.zeros(1, 3, 5, 32), torch.zeros(1, 3, 5, 32), None, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        port.grouped_attention(q, k, k, None, 1.0, impl="kernel")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        port.grouped_attention(q, k, k, None, 1.0, impl="pallas")
+
+
+def test_build_report_parses_causal_instantiations():
+    """The causal kernels' symbols carry the query heads per KV head after
+    head_dim and type; the plain kernels' keys stay (head_dim, type)."""
+    f32 = ("_ZN12_GLOBAL__N_15wgmma27attention_fwd_causal_kernelILi64EfLi4EEEv14CUtensorMap_st"
+           "S2_PKT0_PKfPS3_iif")
+    bf16 = ("_ZN12_GLOBAL__N_15wgmma27attention_fwd_causal_kernelILi64E13__nv_bfloat16Li4EEEv"
+            "14CUtensorMap_stS3_PKT0_PKfPS4_iif")
+    plain = "_ZN12_GLOBAL__N_15wgmma20attention_fwd_kernelILi64EfEEv14CUtensorMap_stS2_PKT0_PKfPS3_iif"
+    ptxas = "".join(f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'\n"
+                    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                    f"ptxas info    : Used {r} registers, used 1 barriers, 384 bytes cmem[0]\n"
+                    for sym, r in ((f32, 240), (bf16, 168), (plain, 240)))
+    assert port.ptxas_report(ptxas) == {
+        (64, "float32", 4): dict(registers=240, spill_stores=0, spill_loads=0),
+        (64, "bfloat16", 4): dict(registers=168, spill_stores=0, spill_loads=0),
+        (64, "float32"): dict(registers=240, spill_stores=0, spill_loads=0)}

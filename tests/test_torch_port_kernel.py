@@ -176,3 +176,60 @@ def test_autograd_decoder_head_dim_counts_as_packed():
     for a, b in zip(leaves, ref_leaves):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+def _grouped(B, H, H_kv, N, dtype, seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, N, 64, generator=g).cuda().to(dtype)
+    k, v = (torch.randn(B, H_kv, N, 64, generator=g).cuda().to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def _check_causal(q, k, v, pad):
+    """One launch of the causal kernel, counted under its own instantiation
+    and nowhere else, against the plain causal attention."""
+    name = str(q.dtype).split(".")[-1]
+    before = (dict(port.LAUNCHES), dict(port.LAUNCHES_BY_HEAD_DIM))
+    out = port.grouped_attention(q, k, v, pad, 0.125)
+    torch.cuda.synchronize()
+    key = port.causal_key(64, name, q.shape[1] // k.shape[1])
+    assert port.LAUNCHES == before[0]
+    assert port.LAUNCHES_BY_HEAD_DIM == {**before[1], key: before[1][key] + 1}
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = port.attention_reference(q, k, v, pad, 0.125, causal=True)
+    atol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [512, 64], ids=["entity", "description"])
+def test_causal_grouped_kernel_at_lfm2_shapes(dtype, B):
+    """LFM2-8B-A1B's attention: 32 query heads over 8 KV heads of 64,
+    causal, at the entity sweep's B 512 and the relation sweep's B 64 of
+    N 321."""
+    _check_causal(*_grouped(B, 32, 8, 321, dtype, seed=B), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["none", "tail"])
+# N on either side of the 32-key tile and the 64- and 128-row query blocks:
+# diagonal tiles cut anywhere, blocks with one row
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 31, 33, 63, 64, 65, 127, 128, 129, 130, 257, 321])
+def test_causal_kernel_ragged(dtype, mask_kind, N):
+    q, k, v = _grouped(3, 8, 2, N, dtype, seed=N)
+    pad = None
+    if mask_kind == "tail":
+        pad = torch.zeros(3, N, device="cuda")
+        pad[:, N - min(5, N - 1):] = 1.0
+    _check_causal(q, k, v, pad)
+
+
+def test_grouped_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = _grouped(2, 8, 4, 17, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="causal instantiation"):
+        port.attention_fwd_causal_cuda(q, k, v, None, 0.1)      # 2 query heads per KV head
+    q, k, v = _grouped(2, 8, 2, 17, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        port.grouped_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, None, 0.1)
