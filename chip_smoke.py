@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (each raises, and the script exits non-zero, on any failure):
+Phases (each raises, and the script exits non-zero, on any failure; phase
+10's gates are held until phases 11-14 and the JSON are done):
 
 1. card and build — the card's name and power limit (nvidia-smi); every
    kernel of the path is compiled from csrc/ with nvcc (all sources at once),
@@ -12,7 +13,11 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ``attention.WGMMA_INSTANTIATIONS`` (head_dim 32, 64 and 80 × float32 and
    bfloat16) and ``attention.CAUSAL_INSTANTIATIONS`` (the LFM2 encoder's
    causal head_dim 64 with 4 query heads per KV head, both types), on a
-   spill at any of them, and on one without HGMMA or UTMALDG or with HMMA;
+   spill at any of them, and on one without HGMMA or UTMALDG or with HMMA.
+   The float32 GEMM's library (``csrc/gemm_f32x3.cu``, ``ops/linear.py``)
+   likewise: its two kernels' registers, spills and SASS counts, and
+   whether ptxas serialised its ``wgmma``s; it fails on a spill, or unless
+   ``gemm_f32x3_kernel`` holds HGMMA and UTMALDG and no HMMA;
 2. kernels vs plain — each kernel's wrapper on the card at the shapes of the
    serving and training paths, held against its plain PyTorch version
    (float32 atol 1e-4, bfloat16 atol 2e-2), with CUDA-event times of the
@@ -33,14 +38,25 @@ Phases (each raises, and the script exits non-zero, on any failure):
    timed beside the causal bound (the products over the n(n+1)/2 causal
    pairs, or Q and O at 32 heads and K and V at 8 once) and the library's
    causal GQA call (``scaled_dot_product_attention(..., is_causal=True,
-   enable_gqa=True)``, timed only);
+   enable_gqa=True)``, timed only). The GEMM ``linear.gemm_f32x3`` at
+   ``GEMM_CASES`` (M3AE-huge's and LFM2's serving shapes, the GAN's
+   description pass, ladders of rows where it and cuBLAS cross over) and
+   at ragged shapes (M 1-642, N off the tile, K tails, no bias), held to
+   within 1e-5 of max |F.linear| (cuBLAS SGEMM, TF32 off), its error and
+   cuBLAS's against float64 printed, timed with its W split beside
+   ``F.linear`` (``library_ms``), ``linear()`` as the port calls it, the
+   plain three-pass twin, the one-pass bound and the three-pass floor.
+   After each phase, a line of its ``gemm_f32x3`` launches;
 3. serving slice — a synthetic ZSL dataset (2048 entities, 32 relations, 4
    unseen) through the M3AE-small model (emb 384, depth 12, 6 heads of 64,
    image 256 / patch 16, 64 text and 320 description tokens; GCN dim 200,
    noise 15, test_sample 20) with seeded random weights:
    generate_ent_embeddings → generate_rel_embeddings → update_embed →
    evaluate(eval_path="rel_shared"). The launch counts of that run must
-   equal depth × (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen). A second trainer
+   equal depth × (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen), and its
+   ``gemm_f32x3`` launches what its shapes give (``gemm_round_launches``:
+   one per float32 Dense product, 4 × depth per encoder pass among them).
+   A second trainer
    built from the same seed with attention_impl="torch" then serves the
    same round through the plain attention, and the two must agree. One more
    kernel-path round runs under torch.profiler (device busy time, idle
@@ -63,7 +79,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
    counts are reset just before the round, which must launch exactly
    attention layers × (⌈n_ent/512⌉ + ⌈n_rel/64⌉ + n_unseen) = 8 causal
    hd-64 kernels (2 per entity batch, 2 per relation batch, 2 per unseen
-   generator pass) and no other; finite embeddings of the model's shapes,
+   generator pass) and no other, and ``gemm_f32x3`` as its shapes and
+   routing give (the projections per encoder pass, 3 per expert that took
+   rows); finite embeddings of the model's shapes,
    a finite MRR; seconds per stage;
 4. training — one ``train_epoch`` of the fusion step at the full width of
    M3AE-small, its depth cut to 4 / 4 (``tiny4``: encoder 384 wide, 6 heads
@@ -188,8 +206,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    at least 0.95 of the float32 ranks equal and none moved by more than 1
    on each path (bf16 reported); each bf16 path against ``f32_factored`` at
    least 0.88 equal with |d Hits@10| at most 0.05; stage seconds and ms per
-   fusion step, pretrain step and GAN epoch. Every check prints before the
-   failures are raised together;
+   fusion step, pretrain step and GAN epoch. Every check prints; the
+   failures are raised together after phase 14 and the JSON (phase 11
+   reads this phase's certificate, and no later phase depends on the
+   trained model's quality);
 11. the ranking bench — ``tools/bench.main`` in process at its defaults
    (the root ``bench.py``'s workload at FB15K-237-ZS scale: 14,208
    entities, 2048 queries of 301 candidates in chunks of 128 sharing one
@@ -286,7 +306,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
 15. one JSON line of kernels (the float32 and the bfloat16 instantiations
    at head_dim 64, 32 and 80, each with its launches on every path, the
    mesh's per rank; head_dim 80 on phase 3b's path; the causal hd-64 GQA
-   instantiation on phase 3c's), the card line, and the result line.
+   instantiation on phase 3c's; the GEMM ``gemm_f32x3`` with its launches
+   per phase and in each serving round, measured and expected), the card
+   line, and the result line.
 
 Details that do not fit the end of the output go to chiprun_out/.
 It imports nothing of JAX and nothing of the JAX package.
@@ -321,9 +343,10 @@ from mre_tpu_torch.data.fixtures import write_zsl_dataset
 from mre_tpu_torch.data.kg import TripleTable
 from mre_tpu_torch.data.loaders import load_candidates, load_zsl_dataset
 from mre_tpu_torch.data.multimodal import MultimodalPipelineConfig, MultimodalStore
-from mre_tpu_torch.ops import attention
+from mre_tpu_torch.ops import attention, linear
 from mre_tpu_torch.tools import bench, graft_entry
 from mre_tpu_torch.tools import bf16_step_bench as sb
+from mre_tpu_torch.utils.build import SASS_OPS
 from mre_tpu_torch.tools import fusion_mainloop as fm
 from mre_tpu_torch.train.fusion import INFO_KEYS, FusionConfig, FusionTrainer
 from mre_tpu_torch.zsl.module import EVAL_PATHS, ZSLConfig, ZSLModule
@@ -352,6 +375,8 @@ SLICE = dict(model_type="small", depth=12, image_size=256, patch_size=16,
 # entity batch: the kernel at B512·H16·N321·hd80), 16 relations with 2
 # unseen, 500 candidates per query
 HUGE = dict(SLICE, model_type="huge", depth=32, n_ent=512, n_rel=16, n_unseen=2)
+# the serving rounds' Extractor neighbours per entity (phases 3, 3b, 3c)
+ZSL_MAX_NEIGHBOR = 50
 
 # LFM2-8B-A1B as the encoder (phase 3c) at its published widths, its depth
 # cut to layer_types[0:10] as the benchmark's lfm2-8b-a1b configuration has
@@ -625,6 +650,102 @@ def phase_kernels():
     return recs
 
 
+# The float32 Dense products on the GEMM kernel (ops/linear.py): M3AE-huge's
+# entity sweep (512 × 321 rows through its four Dense layers of a block), the
+# LFM2 encoder's at the same rows (the conv projections, the dense SwiGLU,
+# the attention projections, its busiest expert's and a small expert's
+# SwiGLU), M3AE-small's GAN description pass (2 × 321 rows), and ladders of
+# rows at its qkv shape and at M3AE-huge's, where the kernel and cuBLAS cross
+# over
+HUGE_ROWS, GAN_ROWS = 512 * 321, 2 * 321
+GEMM_CASES = (
+    # name, M, K, N, bias
+    ("huge_qkv", HUGE_ROWS, 1280, 3840, True),
+    ("huge_proj", HUGE_ROWS, 1280, 1280, True),
+    ("huge_fc1", HUGE_ROWS, 1280, 5120, True),
+    ("huge_fc2", HUGE_ROWS, 5120, 1280, True),
+    ("lfm2_conv_in", HUGE_ROWS, 2048, 6144, False),
+    ("lfm2_conv_out", HUGE_ROWS, 2048, 2048, False),
+    ("lfm2_swiglu_w1", HUGE_ROWS, 2048, 7168, False),
+    ("lfm2_swiglu_w2", HUGE_ROWS, 7168, 2048, False),
+    ("lfm2_kv", HUGE_ROWS, 2048, 512, False),
+    ("lfm2_expert_w1_big", 162530, 2048, 1792, False),
+    ("lfm2_expert_w2_big", 162530, 1792, 2048, False),
+    ("lfm2_expert_w1_small", 1000, 2048, 1792, False),
+    ("gan_qkv", GAN_ROWS, 384, 1152, True),
+    ("gan_proj", GAN_ROWS, 384, 384, True),
+    ("gan_fc1", GAN_ROWS, 384, 1536, True),
+    ("gan_fc2", GAN_ROWS, 1536, 384, True),
+    *((f"rows_{m}", m, 384, 1152, True) for m in (64, 321, 642, 1284, 2568, 5136, 10272)),
+    *((f"huge_rows_{m}", m, 1280, 3840, True) for m in (321, 642, 1284, 2568, 5136)),
+)
+# the kernel against F.linear (cuBLAS SGEMM, TF32 off): max |d| over max |F.linear|
+GEMM_RTOL = 1e-5
+
+
+def gemm_case(name, M, K, N, bias, gen, timed=True):
+    """``linear.gemm_f32x3`` at [M, K] · [N, K]ᵀ against ``F.linear`` and
+    float64, timed with CUDA events (the call with its W split), beside
+    ``F.linear`` (``library_ms``), the plain three-pass twin, the one-pass
+    bound (the work once at the TF32 peak, or the bytes) and the three-pass
+    floor."""
+    dev = gen.device
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = torch.randn(N, K, generator=gen, device=dev) / math.sqrt(K)
+    b = torch.randn(N, generator=gen, device=dev) * 0.1 if bias else None
+    y = linear.gemm_f32x3(x, w, b)
+    lib_y = F.linear(x, w, b)
+    torch.cuda.synchronize()
+    scale = float(lib_y.abs().max())
+    err = float((y - lib_y).abs().max()) / scale
+    rec = dict(case=name, M=M, K=K, N=N, bias=bias, dtype="float32", rel_err=err,
+               tol=GEMM_RTOL, ok=bool(torch.isfinite(y).all()) and err <= GEMM_RTOL)
+    y64 = F.linear(x.double(), w.double(), None if b is None else b.double())
+    s64 = float(y64.abs().max())
+    rec["rel_err_f64"] = float((y.double() - y64).abs().max()) / s64
+    rec["library_rel_err_f64"] = float((lib_y.double() - y64).abs().max()) / s64
+    del y64
+    del y, lib_y
+    if timed:
+        reps = 10 if M * N * K > (1 << 34) else 50
+        rec["ms"] = time_ms(lambda: linear.gemm_f32x3(x, w, b), reps=reps)
+        rec["library_ms"] = time_ms(lambda: F.linear(x, w, b), reps=reps)
+        rec["linear_ms"] = time_ms(lambda: linear.linear(x, w, b), reps=reps)
+        rec["plain_ms"] = time_ms(lambda: linear.linear_reference(x, w, b), reps=2, warmup=1)
+        flops = 2.0 * M * N * K
+        nbytes = 4.0 * (M * K + N * K + M * N + (N if bias else 0))
+        t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
+        rec["bound_ms"] = max(t_ops, t_bytes)
+        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["passes_floor_ms"] = max(PASSES[torch.float32] * t_ops, t_bytes)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["share_of_floor"] = rec["passes_floor_ms"] / rec["ms"]
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["library_tflops"] = flops / rec["library_ms"] / 1e9
+    log(f"[gemm] {name:<22} M{M} K{K} N{N} bias={int(bias)} rel={err:.2e} (tol {GEMM_RTOL:g})"
+        f" f64: kernel {rec['rel_err_f64']:.2e} cublas {rec['library_rel_err_f64']:.2e}"
+        + (f"  kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s)  F.linear "
+           f"{rec['library_ms']:.3f} ms ({rec['library_tflops']:.1f})  linear() "
+           f"{rec['linear_ms']:.3f}  plain {rec['plain_ms']:.3f}  bound {rec['bound_ms']:.3f} "
+           f"({rec['bound_by']}; share {rec['share_of_bound']:.3f})  3-pass floor "
+           f"{rec['passes_floor_ms']:.3f} (share {rec['share_of_floor']:.3f})" if timed else ""))
+    if not rec["ok"]:
+        raise AssertionError(f"gemm_f32x3 disagrees with F.linear: {rec}")
+    return rec
+
+
+def phase_gemm():
+    """The GEMM kernel's cases (phase 2): each of ``GEMM_CASES`` timed, then
+    ragged shapes checked (M around the 128-row tile, N off the column
+    tile, a K tail, no bias)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)     # inputs drawn on the card
+    recs = [gemm_case(*case, gen) for case in GEMM_CASES]
+    for M, K, N, bias in ((1, 200, 100, True), (63, 36, 257, False), (129, 1284, 511, True),
+                          (321, 4, 7, True), (642, 200, 1, False)):
+        recs.append(gemm_case(f"ragged_{M}_{K}_{N}", M, K, N, bias, gen, timed=False))
+    return recs
+
+
 # -- phase 3: the serving slice ------------------------------------------------
 
 
@@ -751,6 +872,43 @@ def encoder_head_dim(model_type: str) -> int:
     return preset.emb_dim // preset.num_heads
 
 
+def gemm_round_launches(cfg: dict, data_dir: str, layer_products: int, expert_rows=()) -> int:
+    """The ``gemm_f32x3`` launches of one float32 serving round (phase 3's
+    ``serve``) on the card, from its shapes: one per float32 ``Dense``
+    product (autograd needs none of them). ``layer_products``: the encoder's
+    products per pass (4 per M3AE block; LFM2: 2 per conv layer, 4 per
+    attention layer, 3 per dense SwiGLU); ``expert_rows``: the rows of each
+    LFM2 expert in each MoE layer of each pass, 3 products for each that
+    took any; the query chunks come from ``data_dir``'s test candidates."""
+    chunks = sum(math.ceil(len(q) / 64) for q in load_candidates(data_dir, "test").values())
+    ent_batches = math.ceil(cfg["n_ent"] / 512)
+    passes = ent_batches + math.ceil(cfg["n_rel"] / 64) + cfg["n_unseen"]
+    return (layer_products * passes       # the sweeps' batches, each unseen description
+            + ent_batches                   # the entity batches' image embedding
+            + 3                             # the Extractor's neighbour and pair tables
+            + 2 * chunks                    # its SupportEncoder on each 64 queries' pairs
+            + 3 * sum(1 for rows in expert_rows if rows))
+
+
+@contextlib.contextmanager
+def routed_rows():
+    """The rows each LFM2 expert takes in each MoE layer called inside the
+    block (``SparseMoE.select``'s choices), a list filled as they run."""
+    from mre_tpu_torch.models.lfm2 import SparseMoE
+
+    rows: list = []
+
+    def wrap(select):
+        def recorded(self, biased):
+            chosen = select(self, biased)
+            rows.extend(torch.bincount(chosen.reshape(-1), minlength=biased.shape[1]).tolist())
+            return chosen
+        return recorded
+
+    with wrapped(SparseMoE, "select", wrap):
+        yield rows
+
+
 def phase_slice(data_dir: str, cfg: dict = SLICE, device=None, tag: str = "slice"):
     """The serving round on a kernel-path and a same-seed plain trainer.
     Returns (info, served): ``served`` holds the fixture, both trainers and
@@ -776,7 +934,8 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None, tag: str = "slice
 
     fusion, fusion_plain = trainer("auto"), trainer("torch")   # same seed, same weights
     zsl = ZSLModule(data_dir, data["r2id"], data["e2id"],
-                    ZSLConfig(emb_dim=200, noise_dim=15, test_sample=20, max_neighbor=50),
+                    ZSLConfig(emb_dim=200, noise_dim=15, test_sample=20,
+                              max_neighbor=ZSL_MAX_NEIGHBOR),
                     device=device)
     sync()
     t["build_models_s"] = time.perf_counter() - t0
@@ -799,12 +958,15 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None, tag: str = "slice
         return ent, rel, res, times
 
     reset_launches()
+    gemm0 = linear.LAUNCHES["gemm_f32x3"]
     ent, rel, res, times = serve(fusion)
     launches, launches_hd = dict(attention.LAUNCHES), by_head_dim()
+    gemm = linear.LAUNCHES["gemm_f32x3"] - gemm0
     t.update(times)
     # the serving path runs the encoder only: no decoder, no head_dim 32;
     # on the CPU (a rehearsal) the wrappers take the plain version
     on_card = fusion.device.type == "cuda"
+    expect_gemm = gemm_round_launches(cfg, data_dir, 4 * cfg["depth"]) if on_card else 0
     expect = {"attention_fwd": on_card * cfg["depth"] * (math.ceil(cfg["n_ent"] / 512)
                                                          + math.ceil(cfg["n_rel"] / 64)
                                                          + cfg["n_unseen"]),
@@ -812,12 +974,15 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None, tag: str = "slice
     expect_hd = {f"hd{encoder_head_dim(cfg['model_type'])}.float32": expect["attention_fwd"]} \
         if on_card else {}
     log(f"[{tag}] kernel run: {times}  launches {launches} {launches_hd}  expected {expect} "
-        f"{expect_hd}")
+        f"{expect_hd}; gemm_f32x3 {gemm}, expected {expect_gemm}")
     log(f"[{tag}] metrics: hits10 {res['hits10']:.4f} hits5 {res['hits5']:.4f} "
         f"hits1 {res['hits1']:.4f} mrr {res['mrr']:.6f} n {res['n']}")
     if launches != expect or launches_hd != expect_hd:
         raise AssertionError(f"attention kernels launched {launches} {launches_hd} times on "
                              f"the serving path, expected {expect} {expect_hd}")
+    if gemm != expect_gemm:
+        raise AssertionError(f"gemm_f32x3 launched {gemm} times on the serving path, "
+                             f"expected {expect_gemm}")
     if ent.shape != (cfg["n_ent"], 200) or rel.shape != (cfg["n_rel"], 200):
         raise AssertionError(f"embedding shapes {tuple(ent.shape)}, {tuple(rel.shape)}")
     if not (torch.isfinite(ent).all() and torch.isfinite(rel).all()):
@@ -844,7 +1009,8 @@ def phase_slice(data_dir: str, cfg: dict = SLICE, device=None, tag: str = "slice
         raise AssertionError(f"kernel path disagrees with the plain path: "
                              f"ent {d_ent} rel {d_rel} mrr {d_mrr}")
     info = dict(times=t, times_plain=times_p, launches=launches, expected=expect,
-                launches_by_head_dim=launches_hd,
+                launches_by_head_dim=launches_hd, gemm_launches=gemm,
+                gemm_expected=expect_gemm,
                 metrics={k: res[k] for k in ("hits10", "hits5", "hits1", "mrr", "n")},
                 mrr_plain=res_p["mrr"], max_abs_ent=d_ent, max_abs_rel=d_rel,
                 rank_agreement=rank_agree,
@@ -1370,10 +1536,12 @@ def median_rel(a, ref) -> float:
 
 class Gates:
     """The phase's checks: each failure is logged and kept, and ``close``
-    raises them together, so one run prints every number first."""
+    raises them together, so one run prints every number first. Given a
+    list ``held``, ``close`` appends its failures there instead, for the
+    caller to raise after the phases that come later."""
 
-    def __init__(self, tag: str):
-        self.tag, self.failed = tag, []
+    def __init__(self, tag: str, held: list | None = None):
+        self.tag, self.failed, self.held = tag, [], held
 
     def check(self, ok: bool, what: str):
         if not ok:
@@ -1381,7 +1549,10 @@ class Gates:
             self.failed.append(what)
 
     def close(self):
-        if self.failed:
+        if self.failed and self.held is not None:
+            log(f"[{self.tag}] GATES FAILED, raised after the last phase: {self.failed}")
+            self.held.append(f"{self.tag}: {self.failed}")
+        elif self.failed:
             raise AssertionError(f"{self.tag}: {self.failed}")
 
 
@@ -1542,7 +1713,8 @@ def phase_lfm2(data_dir: str, cfg: dict = LFM2, card: str = "no card", device=No
         seed=192, encoder=dict(layer_types=layer_types,
                                num_dense_layers=cfg["num_dense_layers"])), device=device)
     zsl = ZSLModule(data_dir, data["r2id"], data["e2id"],
-                    ZSLConfig(emb_dim=200, noise_dim=15, test_sample=20, max_neighbor=50),
+                    ZSLConfig(emb_dim=200, noise_dim=15, test_sample=20,
+                              max_neighbor=ZSL_MAX_NEIGHBOR),
                     device=device)
     sync()
     t["build_models_s"] = time.perf_counter() - t0
@@ -1551,41 +1723,51 @@ def phase_lfm2(data_dir: str, cfg: dict = LFM2, card: str = "no card", device=No
                 f"model type {cfg['model_type']!r} built {type(encoder).__name__}, not LFM2")
 
     reset_launches()
-    t0 = time.perf_counter()
-    ent = fusion.generate_ent_embeddings()
-    sync()
-    t["ent_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rel = fusion.generate_rel_embeddings()
-    sync()
-    t["rel_s"] = time.perf_counter() - t0
-    zsl.update_embed(ent, rel)
-    t0 = time.perf_counter()
-    res = zsl.evaluate(fusion, verbose=False, eval_path="rel_shared", return_ranks=True)
-    sync()
-    t["eval_s"] = time.perf_counter() - t0
+    gemm0 = linear.LAUNCHES["gemm_f32x3"]
+    with routed_rows() as expert_rows:
+        t0 = time.perf_counter()
+        ent = fusion.generate_ent_embeddings()
+        sync()
+        t["ent_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rel = fusion.generate_rel_embeddings()
+        sync()
+        t["rel_s"] = time.perf_counter() - t0
+        zsl.update_embed(ent, rel)
+        t0 = time.perf_counter()
+        res = zsl.evaluate(fusion, verbose=False, eval_path="rel_shared", return_ranks=True)
+        sync()
+        t["eval_s"] = time.perf_counter() - t0
     launches, launches_hd = dict(attention.LAUNCHES), by_head_dim()
+    gemm = linear.LAUNCHES["gemm_f32x3"] - gemm0
 
     on_card = fusion.device.type == "cuda"
     attn_layers = layer_types.count("full_attention")
+    layer_products = (2 * layer_types.count("conv") + 4 * attn_layers
+                      + 3 * cfg["num_dense_layers"])
+    expect_gemm = (gemm_round_launches(cfg, data_dir, layer_products, expert_rows)
+                   if on_card else 0)
     passes = (math.ceil(cfg["n_ent"] / 512) + math.ceil(cfg["n_rel"] / 64) + cfg["n_unseen"])
     key = attention.causal_key(preset.emb_dim // preset.num_heads, "float32",
                                preset.num_heads // preset.num_kv_heads)
     expect_hd = {key: attn_layers * passes} if on_card else {}
     log(f"[lfm2] {cfg['model_type']} at depth {cfg['depth']} ({attn_layers} attention "
-        f"layers): {t}  launches {launches} {launches_hd}  expected {expect_hd} ({card})")
+        f"layers): {t}  launches {launches} {launches_hd}  expected {expect_hd}; gemm_f32x3 "
+        f"{gemm}, expected {expect_gemm} ({card})")
     log(f"[lfm2] metrics: hits10 {res['hits10']:.4f} mrr {res['mrr']:.6f} n {res['n']}")
     gates.check(not any(launches.values()),
                 f"the LFM2 round launched the non-causal kernel: {launches}")
     gates.check(launches_hd == expect_hd,
                 f"causal launches {launches_hd}, expected {expect_hd}")
+    gates.check(gemm == expect_gemm, f"gemm_f32x3 launches {gemm}, expected {expect_gemm}")
     gates.check(ent.shape == (cfg["n_ent"], 200) and rel.shape == (cfg["n_rel"], 200),
                 f"embedding shapes {tuple(ent.shape)}, {tuple(rel.shape)}")
     gates.check(bool(torch.isfinite(ent).all() and torch.isfinite(rel).all()),
                 "non-finite embeddings")
     gates.check(res["n"] > 0 and math.isfinite(res["mrr"]), f"bad evaluation result: {res}")
     info = dict(times=t, launches=launches, launches_by_head_dim=launches_hd,
-                expected=expect_hd, layer_types=layer_types,
+                expected=expect_hd, layer_types=layer_types, gemm_launches=gemm,
+                gemm_expected=expect_gemm,
                 metrics={k: res[k] for k in ("hits10", "hits5", "hits1", "mrr", "n")},
                 peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
     del fusion, zsl, ent, rel
@@ -2229,16 +2411,16 @@ CERT_RANK_MATCH_MIN, CERT_D_HITS10_MAX = 0.88, 0.05
 
 
 def phase_learnability(work_dir: str, cfg: dict = LEARN, card: str = "no card",
-                       device: str = "cuda") -> dict:
+                       device: str = "cuda", held: list | None = None) -> dict:
     """``tools/zsl_learnability.main`` in process with ``--cert_out``: the
     whole pipeline trained on the learnable fixture, then certified on every
     (dtype × eval path). Exact launch counts of the run (from the
     configuration), learnability, the trained module through the kernel and
     the plain attention, bf16 against float32, and stage times. Every check
-    prints before the failures are raised together."""
+    prints before the failures are raised together, or kept in ``held``."""
     from mre_tpu_torch.tools import zsl_learnability as zl
 
-    gates = Gates("trained")
+    gates = Gates("trained", held)
     t_phase = time.perf_counter()
     stages, held = [], {}
     cert_path = os.path.join(OUT_DIR, "learnability_cert.json")
@@ -3367,6 +3549,30 @@ def keep_into(held: list):
     return wrap
 
 
+def gemm_build_report() -> dict:
+    """Phase 1 for ``csrc/gemm_f32x3.cu``: its build, each kernel's ptxas
+    registers and spills and its SASS counts; fails on a spill, or unless
+    the GEMM holds HGMMA and UTMALDG and no HMMA."""
+    t0 = time.perf_counter()
+    lib = linear.build()
+    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
+    build = linear.build_report(lib)
+    for name, r in sorted(build.items()):
+        log(f"[build] {name}: {r['registers']} registers, spill stores {r['spill_stores']} B, "
+            f"spill loads {r['spill_loads']} B, "
+            + ", ".join(f"{op} {r[op.lower()]}" for op in SASS_OPS)
+            + f", wgmma serialized by ptxas: {r['wgmma_serialized']}")
+    if set(build) != set(linear.KERNELS):
+        raise AssertionError(f"ptxas reported {sorted(build)}, expected {linear.KERNELS}")
+    spills = [name for name, r in build.items() if r["spill_stores"] or r["spill_loads"]]
+    if spills:
+        raise AssertionError(f"register spills: {spills}")
+    gemm = build["gemm_f32x3_kernel"]
+    if not gemm["hgmma"] or not gemm["utmaldg"] or gemm["hmma"] is None or gemm["hmma"]:
+        raise AssertionError(f"gemm_f32x3_kernel without HGMMA or UTMALDG, or with HMMA: {gemm}")
+    return build
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3386,9 +3592,9 @@ def main() -> int:
                 else "attention_fwd_causal_kernel<{}, {}, {}>").format(*key)
         log(f"[build] {name}: {r['registers']} registers, "
             f"spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
-            + ", ".join(f"{op} {r[op.lower()]}" for op in attention.SASS_OPS))
+            + ", ".join(f"{op} {r[op.lower()]}" for op in SASS_OPS))
     uncounted = [key for key, r in build.items()
-                 if any(r[op.lower()] is None for op in attention.SASS_OPS)]
+                 if any(r[op.lower()] is None for op in SASS_OPS)]
     if uncounted:
         raise AssertionError(f"SASS not counted (no cuobjdump) for {uncounted}")
     if set(build) != attention.WGMMA_INSTANTIATIONS | attention.CAUSAL_INSTANTIATIONS:
@@ -3403,17 +3609,23 @@ def main() -> int:
         raise AssertionError(f"instantiations without HGMMA or UTMALDG, or with HMMA "
                              f"(mma.sync): {hopper}")
 
+    gemm_build = gemm_build_report()
     phase_s = {"build": time.perf_counter() - t_start}
+    gemm_launches = {}
 
     def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
+        before = linear.LAUNCHES["gemm_f32x3"]
         try:
             return fn(*a, **kw)
         finally:
             phase_s[name] = time.perf_counter() - t0
+            gemm_launches[name] = linear.LAUNCHES["gemm_f32x3"] - before
             log(f"[time] {name}: {phase_s[name]:.1f} s")
+            log(f"[gemm] {name}: {gemm_launches[name]} gemm_f32x3 launches")
 
     recs = timed("2_kernels", phase_kernels)
+    gemm_recs = timed("2_gemm", phase_gemm)
     with tempfile.TemporaryDirectory() as tmp:
         slice_info, served = timed("3_serving", phase_slice, os.path.join(tmp, "serve"))
         huge_info = timed("3b_huge", phase_huge, os.path.join(tmp, "huge"), card=card)
@@ -3432,8 +3644,11 @@ def main() -> int:
                            card=card)
         kge_info = timed("8_kge", phase_kge, os.path.join(tmp, "kge"), card=card)
         mesh_info = timed("9_mesh", phase_mesh, os.path.join(tmp, "mesh"), card=card)
+        # phase 10's gates judge the trained model, on which no later phase
+        # depends: they are raised after the JSON
+        held = []
         learn_info = timed("10_trained", phase_learnability, os.path.join(tmp, "learn"),
-                           card=card)
+                           card=card, held=held)
         bench_info = timed("11_ranking_bench", phase_ranking_bench,
                            os.path.join(OUT_DIR, "learnability_cert.json"), card=card)
         drivers_info = timed("12_drivers", phase_drivers, card=card)
@@ -3502,6 +3717,23 @@ def main() -> int:
             entry("attention_fwd_causal_gqa4", "none (LFM2-8B-A1B's attention)", "lfm2_entity",
                   {"lfm2_serving": lfm2_info["launches_by_head_dim"].get(
                       attention.causal_key(64, dtype, 4), 0)}, dtype))]}
+    # the float32 GEMM: its launches per phase, and in each serving round
+    # against what that round's shapes give (phases 3, 3b and 3c gate them)
+    gemm_case_rec = next(r for r in gemm_recs if r["case"] == "huge_qkv")
+    kernels["kernels"].append({
+        "name": "gemm_f32x3", "route": "cuda", "source": "mre_tpu_torch/csrc/gemm_f32x3.cu",
+        "replaces": "none (the float32 Dense products)",
+        "launches": sum(gemm_launches.values()), "launches_by_path": gemm_launches,
+        "serving_round": {name: {"launches": info["gemm_launches"],
+                                 "expected": info["gemm_expected"]}
+                          for name, info in (("slice", slice_info), ("huge", huge_info["float32"]),
+                                             ("lfm2", lfm2_info))},
+        "case": "huge_qkv", "rel_err": gemm_case_rec["rel_err"], "ms": gemm_case_rec["ms"],
+        "plain_ms": gemm_case_rec["plain_ms"], "bound_ms": gemm_case_rec["bound_ms"],
+        "bound_by": gemm_case_rec["bound_by"],
+        "share_of_bound": gemm_case_rec["share_of_bound"],
+        "share_of_floor": gemm_case_rec["share_of_floor"],
+        "library_ms": gemm_case_rec["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, kernel_cases=recs,
@@ -3515,10 +3747,14 @@ def main() -> int:
                        mesh=mesh_info, trained=learn_info, ranking_bench=bench_info,
                        drivers=drivers_info, profiling=prof_info, parity=parity_info,
                        phase_s=phase_s,
-                       kernels=kernels["kernels"]),
+                       kernels=kernels["kernels"], gemm_build=gemm_build,
+                       gemm_cases=gemm_recs, gemm_launches=gemm_launches,
+                       held_gates=held),
                   f, indent=1)
     log(json.dumps(kernels))
     log(card)
+    if held:
+        raise AssertionError(f"held gates: {held}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

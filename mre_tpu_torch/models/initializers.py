@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mre_tpu_torch.ops.linear import linear
+
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to ±2
 
 
@@ -54,10 +56,12 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None):
     """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``
     (default: the kernel's own). Below float32 the product is rounded to
     ``dtype`` before the bias is added, as flax adds the bias after
-    ``dot_general``; in float32 it is one ``F.linear``."""
+    ``dot_general``; in float32 it is one ``ops.linear.linear`` (the
+    tensor-core kernel where autograd needs nothing from it, else
+    ``F.linear``)."""
     dtype = layer.weight.dtype if dtype is None else dtype
     if dtype == torch.float32:
-        return F.linear(x, layer.weight, layer.bias)
+        return linear(x, layer.weight, layer.bias)
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
     return y if layer.bias is None else y + layer.bias.to(dtype)
 

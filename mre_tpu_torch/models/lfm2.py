@@ -30,7 +30,8 @@ RMSNorm (LFM2's ``embedding_norm``) follows the stack. As the published
   weighted by the unbiased ``s`` of the chosen ones divided by their sum
   (``norm_topk_prob``) times ``routed_scaling_factor``. Every token is
   routed (none dropped); the rows are grouped by expert (a stable sort) and
-  each expert's SwiGLU runs on its own rows only.
+  each expert's SwiGLU runs on its own rows only (``ops.linear.linear``:
+  in float32 the tensor-core kernel on CUDA, as the projections' ``dense``).
 
 No layer reads the padding mask: rows are right-padded ([cls | patches |
 text] with the text's PAD last), so under causal attention and the causal
@@ -68,6 +69,7 @@ from torch import nn
 from mre_tpu_torch.core.profiling import count, span
 from mre_tpu_torch.models.initializers import dense
 from mre_tpu_torch.ops.attention import grouped_attention
+from mre_tpu_torch.ops.linear import linear
 
 INIT_STD = 0.02   # the published initializer_range
 
@@ -228,8 +230,8 @@ class SparseMoE(nn.Module):
         for e, n in enumerate(rows):
             if n:
                 h = xs[start:start + n]
-                h = F.silu(F.linear(h, self.w1[e].to(dtype))) * F.linear(h, self.w3[e].to(dtype))
-                ys[start:start + n] = F.linear(h, self.w2[e].to(dtype))
+                h = F.silu(linear(h, self.w1[e].to(dtype))) * linear(h, self.w3[e].to(dtype))
+                ys[start:start + n] = linear(h, self.w2[e].to(dtype))
             start += n
         del xs
         y = torch.empty_like(ys)

@@ -44,20 +44,14 @@ the softmax.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-from mre_tpu_torch.utils.build import build_once
+from mre_tpu_torch.utils import build as _build
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "attention_fwd.cu"
-BUILD_DIR = _PKG / "_build"
+_SOURCE = _build.CSRC / "attention_fwd.cu"
 HEAD_DIMS = (32, 64, 80)
 # the instantiations built on wgmma + TMA: all of them. chip_smoke.py
 # requires HGMMA and UTMALDG, and no HMMA, in each.
@@ -114,41 +108,12 @@ def attention_reference(q, k, v, padding_mask, scale, causal: bool = False):
     return torch.einsum("bhqk,bhkd->bhqd", att, v.float()).to(q.dtype)
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the attention kernel is built "
-                           "from csrc/attention_fwd.cu on a machine with the "
-                           "CUDA toolkit")
-    return found
-
-
 def build(defines: tuple[str, ...] = ()) -> Path:
-    """Compile ``csrc/attention_fwd.cu`` for sm_90a (once per source hash
-    and ``defines``, e.g. ``("ATTN_BLOCK_K=32", "ATTN_WG=1")`` for a
-    tile sweep). The ptxas report goes beside the library. Safe under
-    concurrent first use (``utils/build.py``)."""
-    key = _SOURCE.read_bytes() + "\0".join(defines).encode()
-    name = f"libattention_fwd-{hashlib.sha256(key).hexdigest()[:12]}"
-    report = BUILD_DIR / f"{name}.ptxas.txt"
-
-    def compile_to(tmp: Path) -> None:
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               *(f"-D{d}" for d in defines), "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        # the report is in place before the library is
-        tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
-        tmp_report.write_text(proc.stderr)
-        os.replace(tmp_report, report)
-
-    # one process compiles, concurrent first users wait for it
-    return build_once(BUILD_DIR / f"{name}.so", compile_to)
+    """Compile ``csrc/attention_fwd.cu`` for sm_90a (``utils.build.build_cuda``:
+    once per source hash and ``defines``, e.g. ``("ATTN_BLOCK_K=32",
+    "ATTN_WG=1")`` for a tile sweep). The ptxas report goes beside the
+    library."""
+    return _build.build_cuda(_SOURCE, defines)
 
 
 _ENTRY = re.compile(r"attention_fwd_kernelILi(\d+)E(f|13__nv_bfloat16)E")
@@ -169,57 +134,21 @@ def _instantiation(symbol: str):
 
 
 def ptxas_report(text: str) -> dict:
-    """Registers and spill bytes of each kernel instantiation, from the
-    ``-Xptxas -v`` report: ``{(hd, dtype): {"registers", "spill_stores",
-    "spill_loads"}}``."""
-    out, cur = {}, None
-    for line in text.splitlines():
-        if "Compiling entry function" in line:
-            cur = _instantiation(line)
-            if cur is not None:
-                out[cur] = {}
-        elif cur is not None and (m := re.search(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
-            out[cur]["registers"] = int(m.group(1))
-    return out
-
-
-SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+    """``utils.build.ptxas_report``, each kernel named by its instantiation:
+    ``{(hd, dtype): {"registers", "spill_stores", "spill_loads"}}``."""
+    return _build.ptxas_report(text, _instantiation)
 
 
 def sass_counts(sass: str) -> dict:
-    """The tensor-core and TMA instructions in each kernel instantiation of
-    a ``cuobjdump -sass`` listing: ``{(hd, dtype): {"HMMA": n, "HGMMA": n,
-    "UTMALDG": n}}`` (``mma.sync``, ``wgmma`` and TMA tile loads)."""
-    out, cur = {}, None
-    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
-    for line in sass.splitlines():
-        if "Function :" in line:
-            cur = _instantiation(line)
-            if cur is not None:
-                out[cur] = dict.fromkeys(SASS_OPS, 0)
-        elif cur is not None and (m := ops.search(line)):
-            out[cur][m.group(1)] += 1
-    return out
+    """``utils.build.sass_counts``, each kernel named by its instantiation:
+    ``{(hd, dtype): {"HMMA": n, "HGMMA": n, "UTMALDG": n}}``."""
+    return _build.sass_counts(sass, _instantiation)
 
 
 def build_report(lib: Path) -> dict:
-    """ptxas registers and spills of every instantiation in a built library,
-    with its SASS counts of ``HMMA``, ``HGMMA`` and ``UTMALDG`` (lower-case
-    keys) where the toolkit has ``cuobjdump`` (else each is None)."""
-    report = ptxas_report(lib.with_suffix(".ptxas.txt").read_text())
-    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
-    counts = {}
-    if cuobjdump.exists():
-        proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                              capture_output=True, text=True, check=True)
-        counts = sass_counts(proc.stdout)
-    for key, rec in report.items():
-        for op in SASS_OPS:
-            rec[op.lower()] = counts[key][op] if key in counts else None
-    return report
+    """``utils.build.build_report`` of a built library, each kernel named
+    by its instantiation."""
+    return _build.build_report(lib, _instantiation)
 
 
 def bind(path: Path) -> ctypes.CDLL:

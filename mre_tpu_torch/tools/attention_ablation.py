@@ -30,6 +30,7 @@ import torch
 from mre_tpu_torch.core.device import resolve_device
 from mre_tpu_torch.ops import attention
 from mre_tpu_torch.tools.tile_sweep import SHAPES, TOL, _inputs, _time_ms
+from mre_tpu_torch.utils import build
 
 # the Hopper body's parts: (first line, last line) of each, as they appear in
 # attention_fwd.cu; the switch compiles the lines between them out
@@ -93,10 +94,7 @@ def ablated_source(src: str) -> str:
 def _build(item, path: Path) -> tuple[str, Path]:
     name, defines = item
     lib = path.with_name(f"{name}.so")
-    cmd = [attention._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", *(f"-D{d}" for d in defines), "-o", str(lib),
-           str(path)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(build.nvcc_command(path, lib, defines), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{proc.stderr}")
     return name, lib
@@ -107,7 +105,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    path = attention.BUILD_DIR / "ablation" / "attention_fwd.cu"
+    path = build.BUILD_DIR / "ablation" / "attention_fwd.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(ablated_source(attention._SOURCE.read_text()))
     with ThreadPoolExecutor(len(VARIANTS)) as pool:

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from mre_tpu_torch.ops import attention
+from mre_tpu_torch.utils import build
 from mre_tpu_torch.utils.build import build_once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,8 +81,8 @@ def test_attention_build_compiles_once_under_threads(tmp_path, monkeypatch):
                     "echo library > \"$2\"\n"
                     "echo 'ptxas info    : Used 40 registers' >&2\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(attention, "_nvcc", lambda: str(fake))
-    monkeypatch.setattr(attention, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     libs, errors = [], []
 
     def first_use():
